@@ -10,25 +10,49 @@ Phases, each printed as one JSON line:
 2. ``kernel_cases``: every kernel at the main path's shapes, on the card,
    against its plain PyTorch version on the same inputs (float32,
    bfloat16 and float16 scores): ints, ids and words exact, scores
-   bit-equal. Times are medians of 20 calls after a warm-up. ``ms``,
-   ``plain_ms`` and ``library_ms`` are the device time of one call of
-   the wrapper (its output fills included), of the plain version and of
-   the one PyTorch call that computes the same function, where there is
-   one: CUDA events around the call while a sleep kernel holds the
-   stream, so the host's launch latency is not counted. ``kernel_ms``
-   is the kernel alone, from torch.profiler. ``call_ms`` is the
-   wrapper's latency with the host launch included. ``bound_ms`` is the
-   least time for the bytes the function must move at this run's data;
-   ``kernel_bound_ms`` the same for the bytes the kernel alone moves.
+   bit-equal. The ragged-rebuild (B4) and tokenize+hash (B5) cases run
+   one 32,768-doc chunk of the Zipf corpus at L = 256: B4 on uint16 and
+   int32 flat streams at granules 1, 8, 16 and 32, B5 on the uint8 slab
+   and its int32 upcast, with and without ``truncate_at``, plus a
+   multi-byte UTF-8 slab with a non-zero seed; both equal their plain
+   versions on the whole [D, L], and B5 equals the host packer's ids.
+   Times are medians of 20 calls after a warm-up, each the device span
+   of one call: CUDA events around it while a sleep kernel holds the
+   stream, so the host's launch latency is not counted. ``ms`` is one
+   wrapper call (its output fills included), ``kernel_ms`` the kernel's
+   launch alone (the same call where the wrapper does nothing else on
+   the device), ``plain_ms`` the plain version and ``library_ms`` the
+   one PyTorch call that computes the same function, where there is
+   one. ``call_ms`` is the wrapper's latency with the host launch
+   included. ``bound_ms`` is the least time for the bytes (or, for B5,
+   the operations) the function needs at this run's data;
+   ``kernel_bound_ms`` the same for the kernel alone.
 3. ``path_sparse_topk``: ``TfidfPipeline.run`` on 32,768 Zipf documents,
    hashed vocab 2^16, top-16 (the sparse engine), against the same run on
    the CPU; asserts the score+top-k and pack kernels launched; profiles
-   the device time of one warm ``run_packed``.
+   the device time of one warm ``run_packed`` (torch.profiler; a profile
+   with no device activity fails the run).
 4. ``path_dense_topk``: the same corpus on the dense engine, vocab 4,096,
    top-16; asserts the TF/DF and pack kernels launched.
 5. ``path_golden``: a 64-doc corpus inside the reference's envelope on the
    golden EXACT config; ``output.txt`` bytes equal the golden oracle's
    and the CPU run's.
+6. ``path_ragged_batch``: the 32,768-doc corpus as a ``RaggedBatch``
+   through ``TfidfPipeline.run_packed``: B4 launches and the result
+   equals the ``PackedBatch`` run's.
+7. ``path_ingest_resident``: 131,072 Zipf documents written to a
+   temporary directory, through ``ingest.run_overlapped`` at doc_len 256,
+   4 chunks of 32,768, hashed 2^16, top-16, packed wire, scan finish,
+   once per wire (ragged, bytes, padded): the native loader ran, B4 / B5 /
+   B1 / B3 launched, the three wires give identical words, df and
+   lengths, the ragged run equals the port's CPU run (``compare_topk``)
+   and ``TfidfPipeline.run`` on the same documents. Prints warm wall,
+   docs/s, phases and the result's fields per wire, and a device
+   profile of one warm ragged run.
+8. ``path_ingest_streaming``: the 32,768-doc corpus in the streaming
+   regime (``TFIDF_TPU_RESIDENT_ELEMS`` below it, 4 chunks of 8,192, the
+   triple cache sized for 2 of them), spill host and reread, ragged and
+   bytes wires: words, df and lengths equal the resident run's.
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": ...}``.
@@ -43,6 +67,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,6 +76,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+# int32 multiply-adds per second: 64 INT32 lanes per SM (half the 128
+# FP32 lanes behind the data sheet's 67 TFLOP/s) x 132 SMs x 1.98 GHz.
+INT32_MAD_PER_S = 132 * 64 * 1.98e9
 SEED = 42
 N_DOCS = 32768
 DOC_LEN = 256
@@ -58,6 +86,8 @@ N_WORDS = 8192
 TOPK = 16
 SPARSE_VOCAB = 1 << 16
 DENSE_VOCAB = 4096
+INGEST_DOCS = 4 * N_DOCS  # path_ingest_resident: 4 chunks of N_DOCS
+STREAM_CHUNK = 8192       # path_ingest_streaming: 4 chunks of N_DOCS
 
 
 def emit(obj) -> None:
@@ -91,17 +121,22 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_span_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_span_ms(fn, reps: int = 20, warmup: int = 3, setup=None) -> float:
     """Median device milliseconds of one ``fn()`` call, from its first
     device operation to the end of its last: a sleep kernel holds the
     stream while the host enqueues the start event, the call and the end
-    event, so the host's launch latency is not counted."""
+    event, so the host's launch latency is not counted. ``setup()``, if
+    given, runs before each call, outside the timed span."""
     for _ in range(warmup):
+        if setup:
+            setup()
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if setup:
+            setup()
         torch.cuda.synchronize()
         torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
@@ -112,10 +147,10 @@ def device_span_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, reps: int = 1):
-    """Device activity of ``reps`` calls of ``fn`` (after one warm-up
-    call), from torch.profiler: ``(name, ms)`` per kernel, copy or
-    memset, plus the wall milliseconds of the window."""
+def device_events(fn):
+    """Device activity of one ``fn()`` call (after one warm-up call),
+    from torch.profiler: ``(name, ms)`` per kernel, copy or memset, plus
+    the wall milliseconds of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,33 +158,44 @@ def device_events(fn, reps: int = 1):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
+    events = [(e.name, e.time_range.elapsed_us() / 1e3)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(bool(events), "the profiler recorded no device activity")
     return events, wall_ms
 
 
-def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Median device milliseconds of the kernel named ``kernel`` over
-    ``reps`` calls of ``fn``, each of which launches it once."""
-    events, _ = device_events(fn, reps)
-    picked = [ms for name, ms in events if kernel in name]
-    check(len(picked) == reps,
-          f"{len(picked)} launches of {kernel!r} in {reps} calls")
-    return statistics.median(picked)
-
-
-def kernel_times(kernel: str, call, plain, library=None) -> dict:
-    """Device time of one wrapper call (``ms``) and of its kernel alone,
-    the call's latency from the host, and the device time of the plain
-    version and of the library call."""
-    return {"ms": device_span_ms(call), "kernel_ms": kernel_ms(call, kernel),
+def kernel_times(call, plain, library=None, kernel_only=None,
+                 kernel_setup=None) -> dict:
+    """Device time of one wrapper call (``ms``), of its kernel launch
+    alone (``kernel_only``, after ``kernel_setup`` outside the span; by
+    default the call itself, for wrappers whose only device work is the
+    launch), of the plain version and of the library call, and the
+    call's latency from the host."""
+    ms = device_span_ms(call)
+    k_ms = device_span_ms(kernel_only, setup=kernel_setup) if kernel_only else ms
+    return {"ms": ms, "kernel_ms": k_ms,
             "call_ms": time_ms(call), "plain_ms": device_span_ms(plain),
             "library_ms": device_span_ms(library) if library else None}
+
+
+def profile_summary(fn, top_n: int = 12) -> dict:
+    """Where the device time of one warm ``fn()`` goes: top device
+    operations and the idle share of the window."""
+    events, wall_ms = device_events(fn)
+    by_name = {}
+    for ev, ms in events:
+        row = by_name.setdefault(ev, [0, 0.0])
+        row[0] += 1
+        row[1] += ms
+    busy = sum(ms for _, ms in events)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms,
+            "top": [{"name": n[:100], "count": c, "ms": ms}
+                    for n, (c, ms) in top]}
 
 
 def bound_ms(nbytes: int) -> float:
@@ -175,15 +221,65 @@ def zipf_tokens(rng, d: int, length: int, vocab: int):
     return buckets[ranks].astype(np.int32), lens.astype(np.int32)
 
 
-def zipf_corpus(Corpus, rng):
-    """The sparse/dense paths' corpus: N_DOCS docs of words w0..w8191,
-    Zipf(1.3) word ranks and Zipf-shaped lengths up to DOC_LEN."""
+def zipf_docs(rng, n_docs: int):
+    """``n_docs`` docs of words w0..w8191: Zipf(1.3) word ranks and
+    Zipf-shaped lengths up to DOC_LEN (bench.py's corpus shape)."""
     words = np.array([f"w{i}".encode() for i in range(N_WORDS)], dtype=object)
-    ranks = np.clip(rng.zipf(1.3, N_DOCS * DOC_LEN), 1, N_WORDS) - 1
-    lens = np.maximum(DOC_LEN // np.clip(rng.zipf(1.3, N_DOCS), 1, DOC_LEN), 1)
+    ranks = np.clip(rng.zipf(1.3, n_docs * DOC_LEN), 1, N_WORDS) - 1
+    lens = np.maximum(DOC_LEN // np.clip(rng.zipf(1.3, n_docs), 1, DOC_LEN), 1)
     offs = np.concatenate([[0], np.cumsum(lens)])
-    docs = [b" ".join(words[ranks[offs[i]:offs[i + 1]]]) for i in range(N_DOCS)]
-    return Corpus(names=[f"doc{i}" for i in range(1, N_DOCS + 1)], docs=docs)
+    return [b" ".join(words[ranks[offs[i]:offs[i + 1]]]) for i in range(n_docs)]
+
+
+def zipf_corpus(Corpus, rng, n_docs: int = N_DOCS):
+    """The paths' corpus: :func:`zipf_docs` named doc1..docN."""
+    return Corpus(names=[f"doc{i}" for i in range(1, n_docs + 1)],
+                  docs=zipf_docs(rng, n_docs))
+
+
+def utf8_docs(rng, n_docs: int):
+    """Docs of multi-byte UTF-8 and ASCII words with every separator
+    byte of the whitespace set."""
+    pool = ["héllo", "wörld", "中文", "éé", "naïve", "Ωmega", "日本語テキスト",
+            "emoji😀", "a", "supercalifragilisticexpialidocious", "x1", "ß"]
+    seps = [" ", "\t", "\n", "\r\n", "  ", "\x0b", "\x0c"]
+    docs = []
+    for _ in range(n_docs):
+        n = int(rng.integers(0, 40))
+        parts = []
+        for w, s in zip(rng.integers(0, len(pool), n),
+                        rng.integers(0, len(seps), n)):
+            parts += [pool[w], seps[s]]
+        docs.append("".join(parts).encode())
+    return docs
+
+
+def write_corpus(root: str, docs) -> str:
+    """Write docs as doc1..docN under ``root`` (8 writer threads);
+    returns ``root``."""
+    import concurrent.futures as cf
+
+    def write(i):
+        with open(os.path.join(root, f"doc{i + 1}"), "wb") as f:
+            f.write(docs[i])
+
+    with cf.ThreadPoolExecutor(max_workers=8) as ex:
+        list(ex.map(write, range(len(docs))))
+    return root
+
+
+def build_slab(docs, align: int, pad_to: int):
+    """The bytes wire's slab (ops/device_tokenize.py's layout): doc bytes
+    at aligned offsets, 0x20 fill, capacity a ``pad_to`` multiple."""
+    from tfidf_tpu_torch.ops.device_tokenize import aligned_byte_lengths
+    blens = np.array([len(d) for d in docs], np.int32)
+    albl = aligned_byte_lengths(blens, align)
+    total = int(albl.sum())
+    slab = np.full(max(total + (-total % pad_to), pad_to), 0x20, np.uint8)
+    offs = np.concatenate([[0], np.cumsum(albl)[:-1]])
+    for doc, off in zip(docs, offs.tolist()):
+        slab[off:off + len(doc)] = np.frombuffer(doc, np.uint8)
+    return slab, blens
 
 
 def golden_corpus(Corpus, rng):
@@ -197,19 +293,29 @@ def golden_corpus(Corpus, rng):
     return Corpus(names=[f"doc{i}" for i in range(1, 65)], docs=docs)
 
 
-def env_phase(build):
+def env_phase(_build):
+    """Builds the CUDA kernels (nvcc) and the host loader library (g++)
+    at the same time."""
+    import concurrent.futures as cf
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     cap = torch.cuda.get_device_capability(0)
     check(cap == (9, 0), f"compute capability {cap} is not Hopper (9, 0)")
-    built = build()
-    sys.stderr.write(built["log"] + "\n")
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(max_workers=1) as ex:
+        host = ex.submit(_build.build_host)
+        built = _build.build()
+        host_built = host.result()
+    sys.stderr.write(built["log"] + "\n" + host_built["log"] + "\n")
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "capability": list(cap),
           "nvidia_smi": smi, "build_s": built["seconds"],
-          "library": os.path.relpath(built["path"], REPO)})
+          "host_build_s": host_built["seconds"],
+          "builds_wall_s": time.perf_counter() - t0,
+          "library": os.path.relpath(built["path"], REPO),
+          "host_library": os.path.relpath(host_built["path"], REPO)})
     return smi
 
 
@@ -261,7 +367,6 @@ def kernel_phase(K):
                 + d * TOPK * (4 + 4))
     summary["fused_score_topk"] = {
         **kernel_times(
-            "fused_score_topk_kernel",
             lambda: K.fused_score_topk(ids, counts, head, lens_d, idf, k=TOPK),
             lambda: K.fused_score_topk_plain(ids, counts, head, lens_d, idf,
                                              k=TOPK)),
@@ -301,17 +406,26 @@ def kernel_phase(K):
     b2_bytes = read_bytes + N_DOCS * DENSE_VOCAB * 4 + DENSE_VOCAB * 4
     b2_kernel_bytes = (read_bytes + int((counts_ref > 0).sum()) * 4
                        + int((df_ref > 0).sum()) * 4)
+    counts_buf = torch.zeros_like(counts_ref)
+    df_buf = torch.zeros_like(df_ref)
     summary["tf_df"] = {
         **kernel_times(
-            "tf_df_kernel",
             lambda: K.tf_df(toks_d, lens_d, vocab_size=DENSE_VOCAB),
             lambda: K.tf_df_plain(toks_d, lens_d, vocab_size=DENSE_VOCAB),
-            lambda: torch.bincount(flat, minlength=N_DOCS * DENSE_VOCAB)),
+            lambda: torch.bincount(flat, minlength=N_DOCS * DENSE_VOCAB),
+            # The kernel adds into zeroed outputs: a count it finds at 0
+            # is a first occurrence and adds to df.
+            kernel_only=lambda: K.tf_df_launch(toks_d, lens_d, counts_buf,
+                                               df_buf),
+            kernel_setup=lambda: (counts_buf.zero_(), df_buf.zero_())),
         "library_call": "torch.bincount(d*V + id, minlength=D*V) (counts only)",
         "bound_ms": bound_ms(b2_bytes),
         "kernel_bound_ms": bound_ms(b2_kernel_bytes), "max_abs_err": 0,
         "shape": {"D": N_DOCS, "L": DOC_LEN, "V": DENSE_VOCAB,
                   "live_tokens": n_live}}
+    torch.cuda.synchronize()
+    check(torch.equal(counts_buf, counts_ref) and torch.equal(df_buf, df_ref),
+          "B2: the timed launch's output differs from plain")
 
     # --- B3: packed result words ---------------------------------------
     special_v = torch.tensor([[0.0, float("nan"), 70000.0, 65504.0, 1e-8, 2.5]],
@@ -330,13 +444,146 @@ def kernel_phase(K):
                       "shape": list(pv.shape), "words_equal": True,
                       "max_abs_err": 0})
     summary["pack_words"] = {
-        **kernel_times("pack_words_kernel",
-                       lambda: K.pack_words(vals, tids),
+        **kernel_times(lambda: K.pack_words(vals, tids),
                        lambda: K.pack_words_plain(vals, tids)),
         "bound_ms": bound_ms(vals.numel() * 12),
         "kernel_bound_ms": bound_ms(vals.numel() * 12), "max_abs_err": 0, "shape": {"D": N_DOCS, "K": TOPK}}
+    ingest_kernel_cases(K, summary, cases)
     emit({"phase": "kernel_cases", "cases": cases})
     return summary
+
+
+def ingest_kernel_cases(K, summary, cases):
+    """B4 and B5 at the ingest path's shapes: one 32,768-doc chunk of
+    the Zipf corpus at L = 256, G = 16 (the wire's default granule)."""
+    import tfidf_tpu_torch as T
+    from tfidf_tpu_torch.ingest import flatten_aligned
+    from tfidf_tpu_torch.ops.device_tokenize import token_starts
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    docs = zipf_docs(rng, N_DOCS)
+    cfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                           vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                           doc_chunk=DOC_LEN, topk=TOPK)
+    batch = T.pack_corpus(T.Corpus(names=[""] * N_DOCS, docs=docs), cfg,
+                          want_words=False)
+    lens_d = torch.from_numpy(batch.lengths).to(dev)
+
+    # --- B4: ragged rebuild -------------------------------------------
+    flats = {}
+    for dtype in (np.uint16, np.int32):
+        for align in (1, 8, 16, 32):
+            flat, total = flatten_aligned(batch.token_ids, batch.lengths,
+                                          align, dtype=dtype)
+            flat_d = torch.from_numpy(flat).to(dev)
+            flats[dtype, align] = (flat_d, total)
+            got = K.ragged_rebuild(flat_d, lens_d, length=DOC_LEN, align=align)
+            want = K.ragged_rebuild_plain(flat_d, lens_d, length=DOC_LEN,
+                                          align=align)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"B4 {np.dtype(dtype).name} G={align}: differs from plain")
+            live = torch.arange(DOC_LEN, device=dev)[None, :] < lens_d[:, None]
+            check(torch.equal(torch.where(live, got, 0).cpu(),
+                              torch.from_numpy(batch.token_ids)),
+                  f"B4 {np.dtype(dtype).name} G={align}: live ids differ "
+                  f"from the packed batch")
+            cases.append({"kernel": "ragged_rebuild",
+                          "case": f"{np.dtype(dtype).name}_G{align}",
+                          "shape": [N_DOCS, DOC_LEN], "flat_ids": flat.size,
+                          "whole_output_equal": True, "max_abs_err": 0})
+    flat16, total16 = flats[np.uint16, 16]
+    flat32, _ = flats[np.int32, 16]
+    gran = K.granule_offsets(lens_d, 16)[:, None] \
+        + torch.arange(DOC_LEN, device=dev)[None, :] // 16
+    index = (gran.clamp_max(flat32.numel() // 16 - 1) * 16
+             + torch.arange(DOC_LEN, device=dev)[None, :] % 16).long()
+    check(torch.equal(flat32[index],
+                      K.ragged_rebuild(flat32, lens_d, length=DOC_LEN,
+                                       align=16)),
+          "B4: the library gather differs from the kernel")
+    offg16 = K.granule_offsets(lens_d, 16)
+    out16 = torch.empty((N_DOCS, DOC_LEN), dtype=torch.int32, device=dev)
+    # Read once: the live aligned ids and lengths; written: [D, L] int32.
+    b4_bytes = total16 * 2 + N_DOCS * 4 + N_DOCS * DOC_LEN * 4
+    summary["ragged_rebuild"] = {
+        **kernel_times(
+            lambda: K.ragged_rebuild(flat16, lens_d, length=DOC_LEN, align=16),
+            lambda: K.ragged_rebuild_plain(flat16, lens_d, length=DOC_LEN,
+                                           align=16),
+            lambda: flat32[index],
+            kernel_only=lambda: K.ragged_rebuild_launch(flat16, offg16, out16,
+                                                        align=16)),
+        "library_call": "flat[index] (advanced-indexing gather of the int32 "
+                        "flat stream by a precomputed [D, L] int64 index; "
+                        "the gather cannot widen uint16 in the same call)",
+        "bound_ms": bound_ms(b4_bytes), "bound_by": "bytes",
+        "kernel_bound_ms": bound_ms(b4_bytes), "max_abs_err": 0,
+        "shape": {"D": N_DOCS, "L": DOC_LEN, "G": 16, "flat": "uint16",
+                  "live_aligned_ids": total16}}
+    torch.cuda.synchronize()
+    check(torch.equal(out16, K.ragged_rebuild_plain(flat16, lens_d,
+                                                    length=DOC_LEN, align=16)),
+          "B4: the timed launch's output differs from plain")
+
+    # --- B5: tokenize + hash --------------------------------------------
+    slab, blens = build_slab(docs, 16, 1 << 17)
+    slab_d = torch.from_numpy(slab).to(dev)
+    blens_d = torch.from_numpy(blens).to(dev)
+    starts, _, t_lens, _ = token_starts(slab_d, blens_d, length=DOC_LEN,
+                                        align=16)
+    check(torch.equal(t_lens.cpu(), torch.from_numpy(batch.lengths)),
+          "B5: device token lengths differ from the host packer's")
+    u_docs = utf8_docs(rng, 2048)
+    u_slab, u_blens = build_slab(u_docs, 16, 1 << 17)
+    u_slab_d = torch.from_numpy(u_slab).to(dev)
+    u_starts, _, u_lens, _ = token_starts(
+        u_slab_d, torch.from_numpy(u_blens).to(dev), length=DOC_LEN, align=16)
+    b5_inputs = {"uint8": (slab_d, starts, t_lens, 0, 0),
+                 "int32_slab": (slab_d.to(torch.int32), starts, t_lens, 0, 0),
+                 "truncate_3": (slab_d, starts, t_lens, 0, 3),
+                 "utf8_seed_truncate_16": (u_slab_d, u_starts, u_lens,
+                                           0xDEADBEEF12345678, 16),
+                 "utf8_seed": (u_slab_d, u_starts, u_lens, 7, 0)}
+    for label, (sl, st, ln, seed, trunc) in b5_inputs.items():
+        got = K.tokenize_hash(sl, st, ln, vocab_size=SPARSE_VOCAB, seed=seed,
+                              truncate_at=trunc)
+        want = K.tokenize_hash_plain(sl, st, ln, vocab_size=SPARSE_VOCAB,
+                                     seed=seed, truncate_at=trunc)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"B5 {label}: differs from plain")
+        if label == "uint8":
+            check(torch.equal(got.cpu(), torch.from_numpy(batch.token_ids)),
+                  "B5: ids differ from the host packer's")
+        cases.append({"kernel": "tokenize_hash", "case": label,
+                      "shape": list(st.shape), "slab_bytes": sl.numel(),
+                      "whole_output_equal": True, "max_abs_err": 0})
+    live_tokens = int(batch.lengths.sum())
+    hashed_bytes = sum(sum(map(len, d.split()[:DOC_LEN])) for d in docs)
+    # Read once: the slab, lengths and the starts of live slots only (a
+    # dead slot's id is 0 from lengths alone); written: [D, L] int32.
+    b5_bytes = slab.size + live_tokens * 4 + N_DOCS * 4 + N_DOCS * DOC_LEN * 4
+    # Per hashed byte, one 64-bit multiply by the FNV prime: about three
+    # 32-bit multiply-adds; per live token, the fold's 64-bit remainder,
+    # counted as four.
+    b5_mads = 3 * hashed_bytes + 4 * live_tokens
+    b5_bytes_ms = bound_ms(b5_bytes)
+    b5_ops_ms = b5_mads / INT32_MAD_PER_S * 1e3
+    summary["tokenize_hash"] = {
+        **kernel_times(
+            lambda: K.tokenize_hash(slab_d, starts, t_lens,
+                                    vocab_size=SPARSE_VOCAB),
+            lambda: K.tokenize_hash_plain(slab_d, starts, t_lens,
+                                          vocab_size=SPARSE_VOCAB)),
+        "library_call": None,
+        "bound_ms": max(b5_bytes_ms, b5_ops_ms),
+        "bound_by": "bytes" if b5_bytes_ms >= b5_ops_ms else "operations",
+        "bytes_bound_ms": b5_bytes_ms, "operations_bound_ms": b5_ops_ms,
+        "kernel_bound_ms": max(b5_bytes_ms, b5_ops_ms), "max_abs_err": 0,
+        "shape": {"D": N_DOCS, "L": DOC_LEN, "slab_bytes": int(slab.size),
+                  "live_tokens": live_tokens, "hashed_bytes": hashed_bytes,
+                  "int32_mads": b5_mads}}
 
 
 def path_phase(name, T, K, corpus, cfg, expect, wire_dtype):
@@ -365,25 +612,190 @@ def path_phase(name, T, K, corpus, cfg, expect, wire_dtype):
           and np.isfinite(gpu.topk_vals).all(), f"{name}: bad top-k values")
     # Where the device time of one warm run_packed goes (pack excluded).
     pipe = T.TfidfPipeline(cfg)
-    events, wall_ms = device_events(lambda: pipe.run_packed(batch))
-    by_name = {}
-    for ev, ms in events:
-        row = by_name.setdefault(ev, [0, 0.0])
-        row[0] += 1
-        row[1] += ms
-    busy = sum(ms for _, ms in events)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    prof = profile_summary(lambda: pipe.run_packed(batch))
     emit({"phase": name, "docs": len(corpus), "L": int(batch.token_ids.shape[1]),
           "vocab": cfg.vocab_size, "engine": cfg.engine, "topk": cfg.topk,
           "phases_s": timer.as_dict(), "wall_s": wall, "launches": launches,
-          "vs_cpu": cmp,
-          "device_profile": {"run_packed_wall_ms": wall_ms,
-                             "device_busy_ms": busy,
-                             "idle_share": 1 - busy / wall_ms,
-                             "top": [{"name": n[:100], "count": c, "ms": ms}
-                                     for n, (c, ms) in top]},
+          "vs_cpu": cmp, "device_profile": prof,
           "ok": True})
     return launches
+
+
+def _result_fields(r) -> dict:
+    return {f: getattr(r, f) for f in (
+        "path", "wire", "result_wire", "finish", "n_finish_dispatches",
+        "bytes_on_wire", "bytes_on_wire_padded", "bytes_off_wire",
+        "bytes_off_wire_pair", "df_occupied", "num_docs")}
+
+
+def _same_result(a, b) -> bool:
+    """Identical words: ids and the 16-bit score bits, df and lengths."""
+    return (np.array_equal(a.topk_ids, b.topk_ids)
+            and np.array_equal(np.asarray(a.topk_vals, np.float16).view(np.uint16),
+                               np.asarray(b.topk_vals, np.float16).view(np.uint16))
+            and np.array_equal(a.df, b.df)
+            and np.array_equal(a.lengths, b.lengths))
+
+
+def _counted_run(K, FT, fn):
+    """One main-path run with every kernel and native-packer count zeroed
+    just before it; returns (result, wall seconds, kernel launches,
+    native packer calls)."""
+    K.reset_launches()
+    for name in FT.NATIVE_CALLS:
+        FT.NATIVE_CALLS[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return r, wall, dict(K.LAUNCHES), dict(FT.NATIVE_CALLS)
+
+
+def path_ragged_batch(T, K, corpus, cfg, total):
+    """A RaggedBatch through run_packed equals the PackedBatch run."""
+    from tfidf_tpu_torch.io.corpus import pack_ragged
+    pipe = T.TfidfPipeline(cfg)
+    padded = pipe.run_packed(T.pack_corpus(corpus, cfg))
+    rb = pack_ragged(corpus, cfg)
+    K.reset_launches()
+    ragged = pipe.run_packed(rb)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    for kernel, n in launches.items():
+        total[kernel] += n
+    check(launches["ragged_rebuild"] > 0, "path_ragged_batch: B4 never launched")
+    check(np.array_equal(ragged.df, padded.df)
+          and np.array_equal(ragged.topk_ids, padded.topk_ids)
+          and np.array_equal(ragged.topk_vals, padded.topk_vals),
+          "path_ragged_batch: RaggedBatch result differs from PackedBatch")
+    emit({"phase": "path_ragged_batch", "docs": len(corpus),
+          "flat_ids": int(rb.flat.size), "align": rb.align,
+          "launches": launches, "equal_to_packed": True, "ok": True})
+
+
+def path_ingest_resident(T, K, FT, ingest, root, corpus_docs, total):
+    """run_overlapped on INGEST_DOCS documents, once per wire."""
+    from tfidf_tpu_torch.parity import compare_topk
+    n = len(corpus_docs)
+    cfg = {w: T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                               vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                               doc_chunk=DOC_LEN, topk=TOPK, wire=w)
+           for w in ("ragged", "bytes", "padded")}
+    expect = {"ragged": ("ragged_rebuild", "load_pack_flat"),
+              "bytes": ("tokenize_hash", "load_slab_paths"),
+              "padded": (None, "load_pack_paths")}
+    run = {w: (lambda w=w: ingest.run_overlapped(
+        root, cfg[w], chunk_docs=N_DOCS, doc_len=DOC_LEN)) for w in cfg}
+    results, per_wire = {}, {}
+    for w in cfg:
+        run[w]()  # cold: the first run of each wire pays its set-up
+        r, wall, launches, native = _counted_run(K, FT, run[w])
+        for kernel, c in launches.items():
+            total[kernel] += c
+        kernel, packer = expect[w]
+        check(native[packer] == INGEST_DOCS // N_DOCS,
+              f"path_ingest_resident {w}: the native loader did not run "
+              f"({native})")
+        for k_ in ("fused_score_topk", "pack_words") + ((kernel,) if kernel else ()):
+            check(launches[k_] > 0, f"path_ingest_resident {w}: {k_} never "
+                  f"launched")
+        check(r.wire == w and r.path == "resident" and r.finish == "scan"
+              and r.n_finish_dispatches == 1 and r.result_wire == "packed",
+              f"path_ingest_resident {w}: fields {_result_fields(r)}")
+        check(r.topk_vals.shape == (n, TOPK) and np.isfinite(r.topk_vals).all(),
+              f"path_ingest_resident {w}: bad top-k values")
+        results[w] = r
+        per_wire[w] = {"warm_wall_s": wall, "docs_per_s": n / wall,
+                       "launches": launches, "native_calls": native,
+                       "phases": r.phases, "fields": _result_fields(r)}
+    for w in ("bytes", "padded"):
+        check(_same_result(results[w], results["ragged"]),
+              f"path_ingest_resident: the {w} wire's words differ from ragged")
+    rg = results["ragged"]
+    cpu = ingest.run_overlapped(root, cfg["ragged"], chunk_docs=N_DOCS,
+                                doc_len=DOC_LEN, device="cpu")
+    packer = ingest.make_chunk_packer(root, cfg["padded"], n, DOC_LEN)
+    tok, lens = packer([f"doc{i}" for i in range(1, n + 1)])
+    check(np.array_equal(rg.df, cpu.df) and np.array_equal(rg.lengths, cpu.lengths)
+          and np.array_equal(rg.lengths, lens[:n]),
+          "path_ingest_resident: df/lengths differ from the CPU run")
+    vs_cpu = compare_topk(rg.topk_ids, rg.topk_vals, cpu.topk_ids, cpu.topk_vals,
+                          token_ids=tok, lengths=lens, df=cpu.df, num_docs=n,
+                          wire_dtype=np.float16)
+    check(vs_cpu["ok"], f"path_ingest_resident: GPU vs CPU run: {vs_cpu}")
+    corpus = T.Corpus(names=[f"doc{i}" for i in range(1, n + 1)],
+                      docs=corpus_docs)
+    batch = T.TfidfPipeline(cfg["ragged"]).run(corpus)
+    check(np.array_equal(batch.df, rg.df),
+          "path_ingest_resident: df differs from TfidfPipeline.run")
+    vs_pipe = compare_topk(rg.topk_ids, rg.topk_vals, batch.topk_ids,
+                           batch.topk_vals, token_ids=tok, lengths=lens,
+                           df=rg.df, num_docs=n, wire_dtype=np.float16)
+    check(vs_pipe["ok"], f"path_ingest_resident: vs TfidfPipeline.run: {vs_pipe}")
+    prof = profile_summary(run["ragged"])
+    emit({"phase": "path_ingest_resident", "docs": n, "chunk_docs": N_DOCS,
+          "doc_len": DOC_LEN, "vocab": SPARSE_VOCAB, "topk": TOPK,
+          "wires": per_wire, "wires_identical": True, "vs_cpu": vs_cpu,
+          "vs_tfidf_pipeline": vs_pipe,
+          "device_profile_ragged": prof, "ok": True})
+    return rg
+
+
+def path_ingest_streaming(T, K, FT, ingest, root, total):
+    """The streaming regime (2 of 4 chunks triple-cached) equals the
+    resident run of the same corpus, on the ragged and bytes wires."""
+    n = N_DOCS
+    env = {"TFIDF_TPU_RESIDENT_ELEMS": str(n * DOC_LEN - 1),
+           "TFIDF_TPU_TRIPLE_CACHE_BYTES": str(
+               2 * (STREAM_CHUNK * DOC_LEN * 9 + STREAM_CHUNK * 4))}
+    saved = {k_: os.environ.get(k_) for k_ in env}
+
+    def cfg(w):
+        return T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                                vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                                doc_chunk=DOC_LEN, topk=TOPK, wire=w)
+
+    resident = ingest.run_overlapped(root, cfg("ragged"),
+                                     chunk_docs=STREAM_CHUNK, doc_len=DOC_LEN)
+    check(resident.path == "resident", "path_ingest_streaming: reference "
+          "run is not resident")
+    runs = {}
+    try:
+        os.environ.update(env)
+        for w in ("ragged", "bytes"):
+            for spill in ("host", "reread"):
+                fn = (lambda w=w, spill=spill: ingest.run_overlapped(
+                    root, cfg(w), chunk_docs=STREAM_CHUNK, doc_len=DOC_LEN,
+                    spill=spill))
+                r, wall, launches, native = _counted_run(K, FT, fn)
+                for kernel, c in launches.items():
+                    total[kernel] += c
+                label = f"{w}_{spill}"
+                check(r.path == "streaming" and r.wire == w
+                      and r.phases["triple_cached_chunks"] == 2
+                      and r.finish == "scan" and r.n_finish_dispatches == 3,
+                      f"path_ingest_streaming {label}: {_result_fields(r)}")
+                check(launches["ragged_rebuild" if w == "ragged"
+                               else "tokenize_hash"] > 0,
+                      f"path_ingest_streaming {label}: wire kernel never "
+                      f"launched")
+                check(_same_result(r, resident),
+                      f"path_ingest_streaming {label}: differs from the "
+                      f"resident run")
+                runs[label] = {"wall_s": wall, "docs_per_s": n / wall,
+                               "launches": launches, "native_calls": native,
+                               "phases": r.phases,
+                               "fields": _result_fields(r)}
+    finally:
+        for k_, v in saved.items():
+            if v is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v
+    emit({"phase": "path_ingest_streaming", "docs": n,
+          "chunk_docs": STREAM_CHUNK, "env": env, "runs": runs,
+          "equal_to_resident": True, "ok": True})
 
 
 def main() -> int:
@@ -392,11 +804,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import tfidf_tpu_torch as T
+    from tfidf_tpu_torch import ingest
     from tfidf_tpu_torch.config import VocabMode
     from tfidf_tpu_torch.golden import golden_output
+    from tfidf_tpu_torch.io import fast_tokenizer as FT
     from tfidf_tpu_torch.ops import _build, kernels as K
 
-    smi = env_phase(_build.build)
+    smi = env_phase(_build)
     summary = kernel_phase(K)
 
     rng = np.random.default_rng(SEED)
@@ -432,12 +846,32 @@ def main() -> int:
           "bytes": len(out), "launches": launches, "golden_equal": True,
           "cpu_equal": True, "ok": True})
 
+    path_ragged_batch(T, K, corpus, sparse_cfg, total)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        big = os.path.join(tmp, "resident")
+        small = os.path.join(tmp, "streaming")
+        os.makedirs(big)
+        os.makedirs(small)
+        t0 = time.perf_counter()
+        big_docs = zipf_docs(np.random.default_rng(SEED + 1), INGEST_DOCS)
+        write_corpus(big, big_docs)
+        write_corpus(small, corpus.docs)
+        emit({"phase": "ingest_corpora", "docs": [INGEST_DOCS, N_DOCS],
+              "bytes": [sum(map(len, big_docs)), sum(map(len, corpus.docs))],
+              "write_s": time.perf_counter() - t0})
+        path_ingest_resident(T, K, FT, ingest, big, big_docs, total)
+        path_ingest_streaming(T, K, FT, ingest, small, total)
+
     sources = {"fused_score_topk": ("tfidf_tpu_torch/csrc/score_topk.cu",
-                                    "tfidf_tpu/ops/pallas_kernels.py:465"),
+                                    "tfidf_tpu/ops/pallas_kernels.py:466"),
                "tf_df": ("tfidf_tpu_torch/csrc/tf_df.cu",
-                         "tfidf_tpu/ops/pallas_kernels.py:103"),
+                         "tfidf_tpu/ops/pallas_kernels.py:105"),
                "pack_words": ("tfidf_tpu_torch/csrc/pack_words.cu",
-                              "tfidf_tpu/ops/pallas_kernels.py:281")}
+                              "tfidf_tpu/ops/pallas_kernels.py:282"),
+               "ragged_rebuild": ("tfidf_tpu_torch/csrc/ragged_rebuild.cu",
+                                  "tfidf_tpu/ops/pallas_kernels.py:210"),
+               "tokenize_hash": ("tfidf_tpu_torch/csrc/tokenize_hash.cu",
+                                 "tfidf_tpu/ops/pallas_kernels.py:388")}
     rows = []
     for kernel, (src, replaces) in sources.items():
         s = summary[kernel]
@@ -445,10 +879,14 @@ def main() -> int:
                      "replaces": replaces, "launches": total[kernel],
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                     "bound_by": "bytes", "library_ms": s["library_ms"],
+                     "bound_by": s.get("bound_by", "bytes"),
+                     "library_ms": s["library_ms"],
                      "kernel_ms": s["kernel_ms"],
                      "kernel_bound_ms": s["kernel_bound_ms"],
-                     "call_ms": s["call_ms"], "shape": s["shape"]})
+                     "call_ms": s["call_ms"], "shape": s["shape"],
+                     **{key: s[key] for key in (
+                         "library_call", "bytes_bound_ms",
+                         "operations_bound_ms") if key in s}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -112,7 +112,8 @@ def test_wrappers_never_serve_cuda_tensors_from_the_plain_path(no_gpu,
     def plain_must_not_run(*a, **k):
         raise AssertionError("plain path ran for CUDA tensors")
 
-    for name in ("fused_score_topk_plain", "tf_df_plain", "pack_words_plain"):
+    for name in ("fused_score_topk_plain", "tf_df_plain", "pack_words_plain",
+                 "ragged_rebuild_plain", "tokenize_hash_plain"):
         monkeypatch.setattr(K, name, plain_must_not_run)
     K.reset_launches()
     ids = _cuda_looking(np.zeros((2, 4), np.int32))
@@ -125,6 +126,15 @@ def test_wrappers_never_serve_cuda_tensors_from_the_plain_path(no_gpu,
         K.tf_df(ids, lens, vocab_size=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         K.pack_words(vals, ids)
+    for dtype in (np.uint16, np.int32):
+        for align in (1, 2, 8, 16):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                K.ragged_rebuild(_cuda_looking(np.zeros(16, dtype)), lens,
+                                 length=4, align=align)
+    for dtype in (np.uint8, np.int32):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            K.tokenize_hash(_cuda_looking(np.full(8, 32, dtype)), ids, lens,
+                            vocab_size=16)
     assert all(n == 0 for n in K.LAUNCHES.values())
 
 
@@ -142,11 +152,36 @@ def test_build_happens_at_first_gpu_use_not_at_import():
     from tfidf_tpu_torch.ops import _build
     assert _build.load.cache_info().currsize == 0
     assert set(_build.SIGNATURES) == {"tfidf_fused_score_topk", "tfidf_tf_df",
-                                      "tfidf_pack_words"}
+                                      "tfidf_pack_words",
+                                      "tfidf_ragged_rebuild",
+                                      "tfidf_tokenize_hash"}
     assert {p.name for p in _build.sources()} == {
-        "score_topk.cu", "tf_df.cu", "pack_words.cu"}
+        "score_topk.cu", "tf_df.cu", "pack_words.cu", "ragged_rebuild.cu",
+        "tokenize_hash.cu"}
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert _build.library_path().parent == _build.BUILD_DIR
+    # the host loader library builds beside it, never into native/
+    assert _build.host_library_path().parent == _build.BUILD_DIR
+    assert all(p.exists() for p in _build.host_sources())
+
+
+def test_run_overlapped_without_gpu_raises(no_gpu, toy_corpus_dir):
+    from tfidf_tpu_torch.ingest import run_overlapped
+    cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_overlapped(toy_corpus_dir, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_overlapped(toy_corpus_dir, cfg, device="cuda")
+    assert run_overlapped(toy_corpus_dir, cfg, device="cpu").num_docs > 0
+
+
+def test_cli_doc_len_without_gpu_raises(no_gpu, toy_corpus_dir, tmp_path):
+    out = tmp_path / "o.txt"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["run", "--input", toy_corpus_dir, "--output", str(out),
+                  "--doc-len", "16", "--vocab-mode", "hashed", "--topk", "3",
+                  "--wire", "bytes"])
+    assert not out.exists()
 
 
 class TestNotPortedYet:
@@ -164,9 +199,25 @@ class TestNotPortedYet:
                 T.discover_corpus(toy_corpus_dir))
 
     def test_ragged_batch(self):
+        # Ported now: the port's RaggedBatch runs (equal to its padded
+        # batch, tests/test_torch_pipeline.py); anything else that only
+        # looks like one is refused by type.
         class RaggedBatch:  # the JAX package's ragged wire, by shape
             flat = np.zeros(16, np.uint16)
 
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        with pytest.raises(TypeError, match="RaggedBatch"):
             T.TfidfPipeline(T.PipelineConfig.golden(),
                             device="cpu").run_packed(RaggedBatch())
+
+    @pytest.mark.parametrize("kw,item", [
+        ({"plan": object()}, "ROADMAP A9"),
+        ({"shard": (0, 1)}, "ROADMAP A9"),
+        ({"df_merge": lambda df: df}, "ROADMAP A9"),
+        ({"total_docs": 4}, "ROADMAP A9"),
+        ({"wire_vals": False}, "ROADMAP A5"),
+    ])
+    def test_run_overlapped_options(self, toy_corpus_dir, kw, item):
+        from tfidf_tpu_torch.ingest import run_overlapped
+        cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
+        with pytest.raises(NotImplementedError, match=item):
+            run_overlapped(toy_corpus_dir, cfg, device="cpu", **kw)

@@ -15,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from tfidf_tpu import ingest as jing
+from tfidf_tpu.ops import device_tokenize as jdt
 from tfidf_tpu.ops.pallas_kernels import (fused_score_topk_pallas,
-                                          pack_words_pallas, tf_df_pallas)
+                                          pack_words_pallas,
+                                          ragged_rebuild_pallas,
+                                          tf_df_pallas, tokenize_hash_pallas)
 from tfidf_tpu.ops.sparse import sorted_term_counts as jax_sorted_term_counts
 from tfidf_tpu_torch.ops import kernels as K
 
@@ -269,4 +273,144 @@ def test_cpu_calls_count_no_launches():
     K.fused_score_topk(_t(ids), _t(cnt), _t(head), _t(lens), _t(idf), k=2)
     K.tf_df(_t(ids), _t(lens), vocab_size=16)
     K.pack_words(_t(idf[:4].reshape(2, 2)), _t(np.zeros((2, 2), np.int32)))
-    assert K.LAUNCHES == {"fused_score_topk": 0, "tf_df": 0, "pack_words": 0}
+    K.ragged_rebuild(_t(np.zeros(16, np.uint16)), _t(lens), length=8, align=8)
+    K.tokenize_hash(_t(np.full(8, 32, np.uint8)),
+                    _t(np.zeros((4, 8), np.int32)), _t(lens), vocab_size=16)
+    assert K.LAUNCHES == {"fused_score_topk": 0, "tf_df": 0, "pack_words": 0,
+                          "ragged_rebuild": 0, "tokenize_hash": 0}
+
+
+def test_pack_words_into_out():
+    rng = np.random.default_rng(2)
+    vals = np.abs(rng.normal(size=(3, 4, 5))).astype(np.float32)
+    tids = rng.integers(-1, 1 << 16, (3, 4, 5)).astype(np.int32)
+    out = torch.zeros((3, 4, 5), dtype=torch.uint32)
+    for i in range(3):
+        got = K.pack_words(_t(vals[i]), _t(tids[i]), out=out[i])
+        assert got.data_ptr() == out[i].data_ptr()
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(pack_words_pallas(vals.reshape(12, 5),
+                                                  tids.reshape(12, 5),
+                                                  interpret=True))
+        .reshape(3, 4, 5))
+
+
+def _flat_case(seed, d, length, align, dtype):
+    """A padded batch with edge-case lengths, flattened by the JAX
+    package's own wire layout."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, length + 1, d).astype(np.int32)
+    lens[0], lens[-1] = 0, length
+    ids = rng.integers(0, 60000 if dtype == np.uint16 else 1 << 20,
+                       (d, length)).astype(np.int32)
+    flat, _ = jing.flatten_aligned(ids, lens, align, dtype=dtype)
+    return flat, lens
+
+
+class TestRaggedRebuild:
+    """B4: the whole [D, L] output (padding slots included) equals the
+    Pallas kernel and the JAX package's XLA rebuild."""
+
+    @pytest.mark.parametrize("align", [8, 16, 32])
+    @pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+    @pytest.mark.parametrize("length", [64, 37])
+    def test_matches_pallas(self, align, dtype, length):
+        flat, lens = _flat_case(align, 11, length, align, dtype)
+        want = np.asarray(ragged_rebuild_pallas(
+            jnp.asarray(flat), jnp.asarray(lens), length=length, align=align,
+            interpret=True))
+        got = K.ragged_rebuild(_t(flat), _t(lens), length=length, align=align)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("align", [1, 2, 4, 8, 16])
+    @pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+    def test_matches_xla_rebuild(self, align, dtype):
+        flat, lens = _flat_case(100 + align, 13, 40, align, dtype)
+        want = np.asarray(jing.rebuild_padded(jnp.asarray(flat),
+                                              jnp.asarray(lens), length=40,
+                                              align=align))
+        got = K.ragged_rebuild(_t(flat), _t(lens), length=40, align=align)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_negative_lengths_count_as_zero(self):
+        flat, lens = _flat_case(5, 6, 16, 8, np.uint16)
+        neg = lens.copy()
+        neg[2] = -5
+        zero = lens.copy()
+        zero[2] = 0
+        a = K.ragged_rebuild(_t(flat), _t(neg), length=16, align=8)
+        b = K.ragged_rebuild(_t(flat), _t(zero), length=16, align=8)
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+    def test_rejects_bad_inputs(self):
+        lens = _t(np.array([3], np.int32))
+        with pytest.raises(ValueError, match="power of two"):
+            K.ragged_rebuild(_t(np.zeros(24, np.uint16)), lens, length=4,
+                             align=12)
+        with pytest.raises(ValueError, match="granules"):
+            K.ragged_rebuild(_t(np.zeros(20, np.uint16)), lens, length=4,
+                             align=16)
+
+
+def _slab_case(seed, align=16):
+    """Random binary docs (multi-byte UTF-8 included) in the bytes wire's
+    slab layout, with the JAX package's token starts."""
+    rng = np.random.default_rng(seed)
+    docs = [bytes(rng.integers(1, 256, rng.integers(0, 200)).astype(np.uint8))
+            for _ in range(9)]
+    docs[1] = "héllo wörld 中文 éé naïve".encode()
+    docs[2] = b""
+    blens = np.array([len(d) for d in docs], np.int32)
+    albl = jdt.aligned_byte_lengths(blens, align)
+    slab = np.full(1024 * (int(albl.sum()) // 1024 + 1), 0x20, np.uint8)
+    offs = np.concatenate([[0], np.cumsum(albl)[:-1]])
+    for doc, off in zip(docs, offs):
+        slab[off:off + len(doc)] = np.frombuffer(doc, np.uint8)
+    starts, valid, lens, b32 = jdt.token_starts(slab, blens, length=24,
+                                                align=align)
+    return (slab, np.asarray(b32), np.asarray(starts), np.asarray(valid),
+            np.asarray(lens))
+
+
+class TestTokenizeHash:
+    """B5: ids equal the Pallas kernel and the XLA hash loop on the whole
+    [D, L] (padding slots 0)."""
+
+    @pytest.mark.parametrize("seed,vocab,hash_seed,trunc", [
+        (0, 1 << 10, 0, 0), (1, 1 << 16, 7, 0), (2, 999, 0xDEADBEEF, 4),
+        (3, 1, 3, 16), (4, 65535, 1, 1)])
+    def test_matches_pallas_and_xla(self, seed, vocab, hash_seed, trunc):
+        slab, b32, starts, valid, lens = _slab_case(seed)
+        want = np.asarray(tokenize_hash_pallas(
+            jnp.asarray(b32), jnp.asarray(starts), jnp.asarray(lens),
+            vocab_size=vocab, seed=hash_seed, truncate_at=trunc,
+            interpret=True))
+        xla = np.asarray(jdt.hash_tokens_xla(
+            jnp.asarray(b32), jnp.asarray(starts), jnp.asarray(valid),
+            vocab_size=vocab, seed=hash_seed, truncate_at=trunc or None))
+        np.testing.assert_array_equal(want, xla)
+        for slab_in in (slab, b32):  # uint8 as shipped, and the upcast
+            got = K.tokenize_hash(_t(slab_in), _t(starts), _t(lens),
+                                  vocab_size=vocab, seed=hash_seed,
+                                  truncate_at=trunc)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_token_at_slab_end(self):
+        # a token running to the last byte of the slab stops at its end
+        slab = np.frombuffer(b"  abc", np.uint8).copy()
+        starts = np.array([[2, 4]], np.int32)
+        lens = np.array([1], np.int32)
+        got = K.tokenize_hash(_t(slab), _t(starts), _t(lens), vocab_size=97)
+        want = np.asarray(tokenize_hash_pallas(
+            jnp.asarray(slab.astype(np.int32)), jnp.asarray(starts),
+            jnp.asarray(lens), vocab_size=97, interpret=True))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert got.numpy()[0, 1] == 0
+
+    def test_rejects_wide_vocab(self):
+        slab, _, starts, _, lens = _slab_case(0)
+        with pytest.raises(ValueError, match="2\\^16"):
+            K.tokenize_hash(_t(slab), _t(starts), _t(lens),
+                            vocab_size=(1 << 16) + 1)

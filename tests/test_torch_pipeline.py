@@ -182,6 +182,45 @@ class TestHashedFullOutput:
         assert tr.output_bytes() == jr.output_bytes()
 
 
+class TestRaggedBatch:
+    """A RaggedBatch through run_packed (the flat stream rebuilt by kernel
+    B4's plain version on the CPU) equals the PackedBatch run and the JAX
+    package's ragged run."""
+
+    @pytest.mark.parametrize("engine,vocab,align", [
+        ("sparse", 1 << 12, 16), ("sparse", 1 << 16, 1), ("dense", 512, 8),
+        ("sparse", (1 << 16) + 8, 4)])
+    def test_equals_packed_batch(self, engine, vocab, align):
+        from tfidf_tpu.io.corpus import pack_ragged as jax_pack_ragged
+        from tfidf_tpu_torch.io.corpus import pack_ragged
+        docs = _zipf_docs(n_docs=40)
+        kw = dict(vocab_mode=JV.HASHED, vocab_size=vocab, topk=4,
+                  engine=engine, max_doc_len=64, doc_chunk=64)
+        jc, tc = _corpora(docs)
+        tcfg = T.PipelineConfig(**{**kw, "vocab_mode": TV.HASHED})
+        pipe = T.TfidfPipeline(tcfg, device="cpu")
+        rb = pack_ragged(tc, tcfg, align=align)
+        assert rb.flat.dtype == (np.uint16 if vocab <= 1 << 16 else np.int32)
+        r_rag = pipe.run_packed(rb)
+        r_pad = pipe.run_packed(T.pack_corpus(tc, tcfg))
+        np.testing.assert_array_equal(r_rag.df, r_pad.df)
+        np.testing.assert_array_equal(r_rag.topk_ids, r_pad.topk_ids)
+        np.testing.assert_array_equal(r_rag.topk_vals, r_pad.topk_vals)
+        jr = J.TfidfPipeline(J.PipelineConfig(**kw)).run_packed(
+            jax_pack_ragged(jc, J.PipelineConfig(**kw), align=align))
+        _assert_topk_agrees(jr, r_rag, T.pack_corpus(tc, tcfg),
+                            np.float16 if vocab <= 1 << 16 else np.float32)
+
+    def test_full_output_bytes(self):
+        from tfidf_tpu_torch.io.corpus import pack_ragged
+        docs = _zipf_docs(seed=4, n_docs=30)
+        _, tc = _corpora(docs)
+        cfg = T.PipelineConfig(vocab_mode=TV.HASHED, vocab_size=1 << 10)
+        pipe = T.TfidfPipeline(cfg, device="cpu")
+        assert pipe.run_packed(pack_ragged(tc, cfg)).output_bytes() \
+            == pipe.run_packed(T.pack_corpus(tc, cfg)).output_bytes()
+
+
 class TestCli:
     def _jax_cli(self, args):
         from tfidf_tpu.cli import main
@@ -197,6 +236,11 @@ class TestCli:
     @pytest.mark.parametrize("extra", [
         [],
         ["--vocab-mode", "hashed", "--vocab-size", "1024", "--topk", "3"],
+        ["--vocab-mode", "hashed", "--topk", "3", "--doc-len", "16"],
+        ["--vocab-mode", "hashed", "--topk", "3", "--doc-len", "8",
+         "--wire", "bytes", "--chunk-docs", "2", "--finish", "chunked"],
+        ["--vocab-mode", "hashed", "--topk", "2", "--doc-len", "8",
+         "--wire", "padded", "--result-wire", "pair", "--spill", "reread"],
     ])
     def test_same_output_file(self, toy_corpus_dir, tmp_path, extra):
         ours, theirs = tmp_path / "ours.txt", tmp_path / "theirs.txt"
@@ -206,3 +250,29 @@ class TestCli:
                        *extra])
         assert ours.read_bytes() == theirs.read_bytes()
         assert ours.stat().st_size > 0
+
+    @pytest.mark.parametrize("args,code,text", [
+        (["--doc-len", "0"], 2, "--doc-len must be >= 1"),
+        (["--chunk-docs", "4"], 2, "only apply to --doc-len"),
+        (["--doc-len", "8"], 2, "needs --vocab-mode hashed"),
+        (["--doc-len", "8", "--vocab-mode", "hashed", "--topk", "2",
+          "--wire", "bytes", "--vocab-size", "70000"], 0,
+         "--wire=bytes needs"),
+        (["--doc-len", "8", "--vocab-mode", "hashed", "--topk", "2",
+          "--finish", "scan", "--result-wire", "pair"], 0,
+         "--finish=scan needs the packed result wire"),
+    ])
+    def test_gating_messages_match_jax(self, toy_corpus_dir, tmp_path,
+                                       capsys, args, code, text):
+        from tfidf_tpu.cli import main as jax_main
+        from tfidf_tpu_torch.cli import main as port_main
+        base = ["run", "--input", toy_corpus_dir]
+        assert port_main(base + ["--output", str(tmp_path / "a"),
+                                 "--device", "cpu"] + args) == code
+        port_err = capsys.readouterr().err
+        assert jax_main(base + ["--output", str(tmp_path / "b")]
+                        + args) == code
+        jax_err = capsys.readouterr().err
+        assert text in port_err and text in jax_err
+        assert [l for l in port_err.splitlines() if text in l] \
+            == [l for l in jax_err.splitlines() if text in l]

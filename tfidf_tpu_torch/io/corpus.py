@@ -1,6 +1,7 @@
 """Corpus discovery, loading, and static-shape packing.
 
-The port's copy of the padded-batch half of ``tfidf_tpu/io/corpus.py``.
+The port's copy of the padded-batch and ragged-batch parts of
+``tfidf_tpu/io/corpus.py``.
 Discovery honours the reference contract: ``doc1..docN`` named by the
 entry count of the input directory (``TFIDF.c:98-110,132-133``), a
 missing file is a hard error (``TFIDF.c:137``); ``strict=False`` takes
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -58,6 +59,97 @@ class PackedBatch:
     names: List[str]
     vocab_size: int
     id_to_word: Optional[Dict[int, bytes]]
+
+
+@dataclasses.dataclass
+class RaggedBatch:
+    """Ragged (CSR-style) device input — the minibatch twin of the
+    overlapped ingest's flat chunk wire (``ingest.flatten_aligned``).
+
+    Documents ship as ONE id stream with each doc starting at a multiple
+    of ``align`` ids (zero fill between docs, bucket-padded tail), so
+    host->device bytes scale with real tokens instead of ``D x L``. The
+    padded batch is rebuilt on the device by kernel B4
+    (``ops.kernels.ragged_rebuild``), or on the host by
+    :func:`ragged_to_padded_host`.
+
+    flat: [N] uint16/int32 granule-aligned flat id stream (N a
+      ``FLAT_BUCKET`` multiple — the ingest wire contract).
+    lengths: int32 [D] live token counts.
+    length: static L of the rebuilt batch.
+    align: wire granule (every doc's ids start at a multiple of it).
+    total: live (pre-bucket-pad) aligned id count.
+    """
+
+    flat: np.ndarray
+    lengths: np.ndarray
+    length: int
+    align: int
+    total: int
+    num_docs: int
+    names: List[str]
+    vocab_size: int
+    id_to_word: Optional[Dict[int, bytes]]
+
+    def to_padded(self) -> PackedBatch:
+        """Host-side rebuild into the equivalent :class:`PackedBatch`
+        (bit-identical to the padded packer's zero-padded layout)."""
+        return PackedBatch(
+            token_ids=ragged_to_padded_host(self.flat, self.lengths,
+                                            self.length, self.align),
+            lengths=self.lengths, num_docs=self.num_docs,
+            names=self.names, vocab_size=self.vocab_size,
+            id_to_word=self.id_to_word)
+
+
+Batch = Union[PackedBatch, RaggedBatch]
+
+
+def ragged_to_padded_host(flat: np.ndarray, lengths: np.ndarray,
+                          length: int, align: int = 1) -> np.ndarray:
+    """Numpy inverse of ``ingest.flatten_aligned``: rebuild the padded
+    ``[D, L]`` int32 batch from a flat aligned id stream. Padding slots
+    are zero-filled (the padded packers' layout), unlike the device
+    rebuild's clamp-and-mask contract."""
+    lens = np.maximum(lengths.astype(np.int64), 0)
+    per_doc = -(-lens // align) * align
+    off = np.concatenate([[0], np.cumsum(per_doc)[:-1]])
+    idx = np.minimum(off[:, None] + np.arange(length)[None, :],
+                     max(flat.size - 1, 0))
+    out = flat[idx].astype(np.int32)
+    return np.where(np.arange(length)[None, :] < lens[:, None], out, 0)
+
+
+def ragged_from_packed(batch: PackedBatch,
+                       align: Optional[int] = None) -> RaggedBatch:
+    """Flatten a :class:`PackedBatch` into the ragged wire format via
+    ``ingest.flatten_aligned``: uint16 ids for vocabs within 2^16, int32
+    beyond (the native packers' rule). ``align`` defaults to the run's
+    wire granule (``TFIDF_TPU_WIRE_ALIGN``)."""
+    # Lazy import: ingest imports this module at load time.
+    from tfidf_tpu_torch.ingest import _wire_align, flatten_aligned
+    if align is None:
+        align = _wire_align()
+    dtype = np.uint16 if batch.vocab_size <= (1 << 16) else np.int32
+    flat, total = flatten_aligned(batch.token_ids, batch.lengths, align,
+                                  dtype=dtype)
+    return RaggedBatch(flat=flat, lengths=batch.lengths,
+                       length=batch.token_ids.shape[1], align=align,
+                       total=total, num_docs=batch.num_docs,
+                       names=batch.names, vocab_size=batch.vocab_size,
+                       id_to_word=batch.id_to_word)
+
+
+def pack_ragged(corpus: "Corpus", config: PipelineConfig,
+                pad_docs_to: Optional[int] = None,
+                want_words: bool = True,
+                align: Optional[int] = None) -> RaggedBatch:
+    """Tokenize + id-map into the ragged wire format: the padded batch of
+    :func:`pack_corpus`, flattened, so a :class:`RaggedBatch` and a
+    :class:`PackedBatch` of one corpus always rebuild equal."""
+    return ragged_from_packed(
+        pack_corpus(corpus, config, pad_docs_to=pad_docs_to,
+                    want_words=want_words), align)
 
 
 def discover_names(input_dir: str, strict: bool = True) -> List[str]:

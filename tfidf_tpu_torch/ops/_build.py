@@ -1,20 +1,30 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's two native libraries.
 
-The kernels in ``tfidf_tpu_torch/csrc/*.cu`` have a plain C interface
-and are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library, loaded with ``ctypes``. The build runs at the first CUDA use
-(:func:`load`), never at import: one ``nvcc -c`` per source, all started
-together, then one link. The library lands in ``tfidf_tpu_torch/_build/``
-under a name carrying the hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the existing library.
+* The CUDA kernels in ``tfidf_tpu_torch/csrc/*.cu`` have a plain C
+  interface and are compiled with ``nvcc`` for Hopper (``sm_90a``) into
+  one shared library, loaded with ``ctypes``. The build runs at the
+  first CUDA use (:func:`load`), never at import: one ``nvcc -c`` per
+  source, all started together, then one link. No ``--use_fast_math``:
+  IEEE division and round-to-nearest conversions are part of the
+  kernels' contract.
+* The host loader library (:func:`load_host`): the repository's native
+  read+tokenize+hash packers (``native/{fast_tokenizer,loader,rerank,
+  intern}.cc``) compiled with ``g++`` (the flags of ``native/Makefile``'s
+  ``fast_tokenizer.so`` rule), on the CPU as on the card, at the first
+  packer call. The port never writes into ``native/``.
 
-No ``--use_fast_math``: IEEE division and round-to-nearest conversions
-are part of the kernels' contract.
+Both land in ``tfidf_tpu_torch/_build/`` under a name carrying the hash
+of their sources and flags, so an edited source rebuilds and an
+unchanged one loads the existing library. A build writes to a temporary
+file and renames it into place under a file lock, so processes that
+start together build once and never load a half-written library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -29,6 +39,10 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_STEM = "libtfidf_kernels"
+HOST_SOURCE_DIR = _PKG.parent / "native"
+HOST_SOURCES = ("fast_tokenizer.cc", "loader.cc", "rerank.cc", "intern.cc")
+HOST_LIB_STEM = "libtfidf_host"
+HOST_FLAGS = ["-O2", "-std=c++17", "-pthread", "-shared", "-fPIC"]
 
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -48,6 +62,12 @@ SIGNATURES = {
     "tfidf_tf_df": [_P, _I, _P, _P, _P, _I, _I, _I, _LL, _P],
     # vals, val_dtype, tids, words, n, stream
     "tfidf_pack_words": [_P, _I, _P, _P, _LL, _P],
+    # flat, flat_dtype, offg, out, D, L, align, n_granules, stream
+    "tfidf_ragged_rebuild": [_P, _I, _P, _P, _I, _I, _I, _LL, _P],
+    # slab, slab_dtype, n, starts, lengths, ids, D, L, seed_state,
+    # vocab_size, truncate_at, stream
+    "tfidf_tokenize_hash": [_P, _I, _LL, _P, _P, _P, _I, _I,
+                            ctypes.c_uint64, _I, _I, _P],
 }
 
 
@@ -55,13 +75,41 @@ def sources() -> List[Path]:
     return sorted(SOURCE_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(SOURCE_DIR.glob("*.cu*")):
+def _hashed_path(stem: str, flags: List[str], srcs) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def library_path() -> Path:
+    """Where the kernel library for the current sources and flags lives."""
+    return _hashed_path(LIB_STEM, NVCC_FLAGS, sorted(SOURCE_DIR.glob("*.cu*")))
+
+
+def host_sources() -> List[Path]:
+    return [HOST_SOURCE_DIR / name for name in HOST_SOURCES]
+
+
+def host_library_path() -> Path:
+    """Where the host loader library for the current sources lives (the
+    shared header ``tokenize_common.h`` is hashed too)."""
+    return _hashed_path(HOST_LIB_STEM, HOST_FLAGS,
+                        [*host_sources(),
+                         HOST_SOURCE_DIR / "tokenize_common.h"])
+
+
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """An exclusive lock on ``_build/<name>.lock`` across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def nvcc() -> str:
@@ -78,16 +126,16 @@ def nvcc() -> str:
 
 
 def build() -> dict:
-    """Compile every source in parallel and link the shared library.
+    """Compile every kernel source in parallel and link the shared library.
 
     Returns ``{"path", "seconds", "log"}``; ``log`` holds nvcc's output,
     including ``-Xptxas -v``'s registers, shared memory and spills per
     kernel. Raises RuntimeError with that output when a step fails.
     """
     out = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with _build_lock("kernels"), \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         exe = nvcc()
         procs = []
         for src in sources():
@@ -115,6 +163,52 @@ def build() -> dict:
         os.replace(staged, out)
     return {"path": str(out), "seconds": time.perf_counter() - t0,
             "log": "\n".join(log)}
+
+
+def build_host() -> dict:
+    """Compile the host loader library: one ``g++ -c`` per source, all
+    started together, then one link. Returns ``{"path", "seconds",
+    "log"}``; raises RuntimeError with g++'s output when a step fails."""
+    out = host_library_path()
+    t0 = time.perf_counter()
+    with _build_lock("host"), \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        if out.exists():  # built by another process while we waited
+            return {"path": str(out), "seconds": 0.0, "log": ""}
+        cxx = os.environ.get("CXX") or "g++"
+        procs = [(src, Path(tmp) / (src.stem + ".o"), subprocess.Popen(
+            [cxx, *HOST_FLAGS, "-c", str(src), "-o",
+             str(Path(tmp) / (src.stem + ".o"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in host_sources()]
+        log = []
+        for src, _, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed on {src.name}:\n"
+                                   + "\n".join(log))
+        staged = Path(tmp) / out.name
+        link = subprocess.run(
+            [cxx, *HOST_FLAGS, *[str(o) for _, o, _ in procs], "-o",
+             str(staged)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError(f"{cxx} link failed:\n" + "\n".join(log))
+        os.replace(staged, out)
+    return {"path": str(out), "seconds": time.perf_counter() - t0,
+            "log": "\n".join(log)}
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded host loader library, built first when its sources
+    changed. Raises (OSError, RuntimeError) when it cannot be built or
+    loaded; the caller decides what that means."""
+    path = host_library_path()
+    if not path.exists():
+        build_host()
+    return ctypes.CDLL(str(path))
 
 
 @functools.cache

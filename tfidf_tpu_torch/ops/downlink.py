@@ -39,6 +39,12 @@ def wire16_dtype(score_dtype) -> torch.dtype:
     return torch.float16
 
 
+def pair_slot_bytes(score_dtype) -> int:
+    """Bytes per slot of the (int32 id, score) pair wire — the
+    ``bytes_off_wire_pair`` accounting denominator."""
+    return 4 + canonical_score_dtype(score_dtype).itemsize
+
+
 def use_packed_result_wire(cfg, vocab_size: Optional[int] = None) -> bool:
     """True = the packed uint32 word wire, False = the (id, score) pair
     wire. ``"packed"`` degrades to the pair wire when the word cannot

@@ -8,6 +8,8 @@ wrapper                    replaces (tfidf_tpu/ops/pallas_kernels.py)
 :func:`fused_score_topk`   ``fused_score_topk_pallas`` — csrc/score_topk.cu
 :func:`tf_df`              ``tf_df_pallas`` — csrc/tf_df.cu
 :func:`pack_words`         ``pack_words_pallas`` — csrc/pack_words.cu
+:func:`ragged_rebuild`     ``ragged_rebuild_pallas`` — csrc/ragged_rebuild.cu
+:func:`tokenize_hash`      ``tokenize_hash_pallas`` — csrc/tokenize_hash.cu
 =========================  =============================================
 
 Each wrapper has the JAX function's signature (less ``interpret``). On
@@ -26,16 +28,19 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from tfidf_tpu_torch.ops import device_tokenize as dt
 from tfidf_tpu_torch.ops._build import load
 from tfidf_tpu_torch.ops.histogram import (df_from_counts, tf_counts_masked,
                                            valid_mask)
 from tfidf_tpu_torch.ops.sparse import sparse_scores, sparse_topk
 
-LAUNCHES: Dict[str, int] = {"fused_score_topk": 0, "tf_df": 0, "pack_words": 0}
+LAUNCHES: Dict[str, int] = {"fused_score_topk": 0, "tf_df": 0, "pack_words": 0,
+                            "ragged_rebuild": 0, "tokenize_hash": 0}
 
-# dtype codes of csrc/common.cuh
+# dtype codes of csrc/common.cuh and csrc/tokenize_hash.cu
 _SCORE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TOKEN_CODES = {torch.int32: 0, torch.uint16: 1}
+_SLAB_CODES = {torch.uint8: 0, torch.int32: 1}
 
 
 def reset_launches() -> None:
@@ -153,7 +158,7 @@ def tf_df(token_ids: torch.Tensor, lengths: torch.Tensor, *, vocab_size: int,
                            id_offset=id_offset, with_df=with_df)
     _check(name, "token_ids", token_ids, set(_TOKEN_CODES), 2)
     _check(name, "lengths", lengths, {torch.int32}, 1)
-    d, length = token_ids.shape
+    d = token_ids.shape[0]
     if lengths.shape != (d,):
         raise ValueError(f"{name}: lengths {tuple(lengths.shape)} vs "
                          f"token_ids {tuple(token_ids.shape)}")
@@ -165,10 +170,22 @@ def tf_df(token_ids: torch.Tensor, lengths: torch.Tensor, *, vocab_size: int,
           if with_df else None)
     if d == 0:
         return counts, df
-    _launch(name, load().tfidf_tf_df, token_ids.device,
-            _ptr(token_ids), _TOKEN_CODES[token_ids.dtype], _ptr(lengths),
-            _ptr(counts), _ptr(df), d, length, vocab_size, int(id_offset))
+    tf_df_launch(token_ids, lengths, counts, df, id_offset=id_offset)
     return counts, df
+
+
+def tf_df_launch(token_ids: torch.Tensor, lengths: torch.Tensor,
+                 counts: torch.Tensor, df: Optional[torch.Tensor], *,
+                 id_offset: int = 0) -> None:
+    """:func:`tf_df`'s kernel launch alone: adds into ``counts`` [D, V]
+    and ``df`` [V] (or None), which the caller zeroed. CUDA tensors that
+    :func:`tf_df` has checked; lets a benchmark time the kernel without
+    the fills."""
+    d, length = token_ids.shape
+    _launch("tf_df", load().tfidf_tf_df, token_ids.device,
+            _ptr(token_ids), _TOKEN_CODES[token_ids.dtype], _ptr(lengths),
+            _ptr(counts), _ptr(df), d, length, counts.shape[1],
+            int(id_offset))
 
 
 # --- B3: packed result words -----------------------------------------
@@ -183,23 +200,165 @@ def pack_words_plain(vals: torch.Tensor, tids: torch.Tensor) -> torch.Tensor:
     return ((hi << 16) | lo).to(torch.uint32)
 
 
-def pack_words(vals: torch.Tensor, tids: torch.Tensor) -> torch.Tensor:
+def pack_words(vals: torch.Tensor, tids: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(vals [D, K], tids [D, K]) -> uint32 words [D, K]: score bits
     (float16, or bfloat16 for bfloat16 scores) in the high half, uint16
     id in the low half; tid < 0 packs as (score -1, id 0). The port's
-    counterpart of the JAX package's ``downlink.pack_result_words``."""
+    counterpart of the JAX package's ``downlink.pack_result_words``.
+    ``out`` (a contiguous uint32 tensor of the same shape and device)
+    receives the words in place: the scan finish packs every chunk
+    straight into its slice of one result buffer."""
     name = "pack_words"
     if _on_cpu(name, vals, tids):
-        return pack_words_plain(vals, tids)
+        words = pack_words_plain(vals, tids)
+        return words if out is None else out.copy_(words)
     _check(name, "vals", vals, set(_SCORE_CODES), vals.dim())
     _check(name, "tids", tids, {torch.int32}, vals.dim())
     if vals.shape != tids.shape:
         raise ValueError(f"{name}: vals {tuple(vals.shape)} vs tids "
                          f"{tuple(tids.shape)}")
-    words = torch.empty(vals.shape, dtype=torch.uint32, device=vals.device)
+    if out is None:
+        words = torch.empty(vals.shape, dtype=torch.uint32, device=vals.device)
+    else:
+        _check(name, "out", out, {torch.uint32}, vals.dim())
+        if out.shape != vals.shape or out.device != vals.device:
+            raise ValueError(f"{name}: out {tuple(out.shape)} on {out.device} "
+                             f"vs vals {tuple(vals.shape)} on {vals.device}")
+        words = out
     if words.numel() == 0:
         return words
     _launch(name, load().tfidf_pack_words, vals.device,
             _ptr(vals), _SCORE_CODES[vals.dtype], _ptr(tids), _ptr(words),
             words.numel())
     return words
+
+
+# --- B4: ragged rebuild -----------------------------------------------
+
+def granule_offsets(lengths: torch.Tensor, align: int) -> torch.Tensor:
+    """offg[d] = sum over e < d of ceil(max(len[e], 0) / align): the
+    granule where doc d's ids start in the aligned flat stream (int32
+    [D]). Negative lengths count as 0."""
+    al = torch.div(lengths.clamp_min(0) + (align - 1), align,
+                   rounding_mode="floor").to(torch.int32)
+    return torch.cumsum(al, 0, dtype=torch.int32) - al
+
+
+def ragged_rebuild_plain(flat: torch.Tensor, lengths: torch.Tensor, *,
+                         length: int, align: int) -> torch.Tensor:
+    """Plain version: the JAX package's XLA granule gather
+    (``ingest._ragged_to_padded``) in torch, padding slots included."""
+    g = align
+    lg = -(-length // g)
+    gran = flat.to(torch.int32).reshape(-1, g)
+    idx = granule_offsets(lengths, g)[:, None] + torch.arange(
+        lg, dtype=torch.int32, device=flat.device)[None, :]
+    tok = gran[idx.clamp_max(gran.shape[0] - 1).long()]
+    return tok.reshape(lengths.shape[0], lg * g)[:, :length].contiguous()
+
+
+def ragged_rebuild(flat: torch.Tensor, lengths: torch.Tensor, *,
+                   length: int, align: int) -> torch.Tensor:
+    """Granule-aligned flat id stream (uint16 or int32 [N], N a multiple
+    of ``align``) + lengths int32 [D] -> int32 [D, length]:
+    ``out[d, j] = flat[min(offg[d] + j // G, N/G - 1) * G + j % G]`` with
+    ``offg`` from :func:`granule_offsets`. Every slot, padding included,
+    equals the JAX package's ``rebuild_padded``. ``align`` is any power
+    of two (1 = the legacy back-to-back layout)."""
+    name = "ragged_rebuild"
+    if align < 1 or align & (align - 1):
+        raise ValueError(f"{name}: align must be a power of two, got {align}")
+    if flat.dim() != 1 or flat.numel() == 0 or flat.numel() % align:
+        raise ValueError(f"{name}: flat must be a non-empty 1-D stream of "
+                         f"whole {align}-id granules, got {tuple(flat.shape)}")
+    if _on_cpu(name, flat, lengths):
+        return ragged_rebuild_plain(flat, lengths, length=length, align=align)
+    _check(name, "flat", flat, set(_TOKEN_CODES), 1)
+    _check(name, "lengths", lengths, {torch.int32}, 1)
+    d = lengths.shape[0]
+    out = torch.empty((d, length), dtype=torch.int32, device=flat.device)
+    if d == 0 or length == 0:
+        return out
+    ragged_rebuild_launch(flat, granule_offsets(lengths, align), out,
+                          align=align)
+    return out
+
+
+def ragged_rebuild_launch(flat: torch.Tensor, offg: torch.Tensor,
+                          out: torch.Tensor, *, align: int) -> None:
+    """:func:`ragged_rebuild`'s kernel launch alone: fills ``out`` [D, L]
+    from ``flat`` and the granule offsets ``offg`` of
+    :func:`granule_offsets`. CUDA tensors that :func:`ragged_rebuild`
+    has checked; lets a benchmark time the kernel without the offsets."""
+    d, length = out.shape
+    _launch("ragged_rebuild", load().tfidf_ragged_rebuild, flat.device,
+            _ptr(flat), _TOKEN_CODES[flat.dtype], _ptr(offg), _ptr(out),
+            d, length, align, flat.numel() // align)
+
+
+# --- B5: tokenize + hash ----------------------------------------------
+
+def tokenize_hash_plain(slab: torch.Tensor, starts: torch.Tensor,
+                        lengths: torch.Tensor, *, vocab_size: int,
+                        seed: int = 0, truncate_at: int = 0) -> torch.Tensor:
+    """Plain version: the JAX package's ``hash_tokens_xla`` in torch, the
+    byte loop vectorised over [D, L] and the FNV-1a64 state held in two
+    32-bit limbs (:mod:`ops.device_tokenize`)."""
+    n = slab.shape[0]
+    b = slab.to(torch.int64)
+    valid = valid_mask(lengths, starts.shape[1])
+    hi0, lo0 = dt.seed_state(seed)
+    hi = torch.full(starts.shape, hi0, dtype=torch.int64, device=slab.device)
+    lo = torch.full(starts.shape, lo0, dtype=torch.int64, device=slab.device)
+    pos0 = starts.to(torch.int64)
+    alive, j = valid, 0
+    while bool(alive.any()):
+        pos = pos0 + j
+        byte = b[pos.clamp_max(n - 1)]
+        consume = alive & ~dt.is_space(byte) & (pos < n)
+        if truncate_at:
+            consume &= j < truncate_at
+        nhi, nlo = dt.fnv1a_step(hi, lo, byte & dt.MASK32)
+        hi = torch.where(consume, nhi, hi)
+        lo = torch.where(consume, nlo, lo)
+        alive, j = consume, j + 1
+    ids = dt.fold_mod(hi, lo, vocab_size)
+    return torch.where(valid, ids, 0).to(torch.int32)
+
+
+def tokenize_hash(slab: torch.Tensor, starts: torch.Tensor,
+                  lengths: torch.Tensor, *, vocab_size: int, seed: int = 0,
+                  truncate_at: Optional[int] = 0) -> torch.Tensor:
+    """Byte slab (uint8 as shipped, or the int32 upcast) + token starts
+    int32 [D, L] + lengths int32 [D] -> int32 ids [D, L]: seeded
+    FNV-1a64 over each live token's bytes up to whitespace (and
+    ``truncate_at`` bytes when > 0), xor-folded, mod ``vocab_size``;
+    padding slots 0. Keeps the JAX package's ``vocab_size <= 2^16``
+    bound (``ops.device_tokenize.fold_mod``)."""
+    name = "tokenize_hash"
+    truncate_at = int(truncate_at or 0)
+    dt.check_vocab(vocab_size)
+    if slab.dim() != 1 or slab.numel() == 0:
+        raise ValueError(f"{name}: slab must be a non-empty 1-D byte "
+                         f"stream, got {tuple(slab.shape)}")
+    if _on_cpu(name, slab, starts, lengths):
+        return tokenize_hash_plain(slab, starts, lengths,
+                                   vocab_size=vocab_size, seed=seed,
+                                   truncate_at=truncate_at)
+    _check(name, "slab", slab, set(_SLAB_CODES), 1)
+    _check(name, "starts", starts, {torch.int32}, 2)
+    _check(name, "lengths", lengths, {torch.int32}, 1)
+    d, length = starts.shape
+    if lengths.shape != (d,):
+        raise ValueError(f"{name}: lengths {tuple(lengths.shape)} vs starts "
+                         f"{tuple(starts.shape)}")
+    ids = torch.empty((d, length), dtype=torch.int32, device=slab.device)
+    if d == 0 or length == 0:
+        return ids
+    hi, lo = dt.seed_state(seed)
+    _launch(name, load().tfidf_tokenize_hash, slab.device,
+            _ptr(slab), _SLAB_CODES[slab.dtype], slab.numel(), _ptr(starts),
+            _ptr(lengths), _ptr(ids), d, length,
+            ctypes.c_uint64((hi << 32) | lo), vocab_size, truncate_at)
+    return ids

@@ -14,10 +14,14 @@ kernel) when the word can carry the run. Integer outputs (counts, DF,
 lengths) come back exact, and the host formatter makes ``output.txt``
 byte-identical to the reference.
 
+``run_packed`` takes the padded :class:`PackedBatch` or the ragged
+:class:`RaggedBatch`, whose flat id stream is rebuilt into the padded
+batch on the device by the ragged-rebuild kernel.
+
 The pipeline runs on CUDA unless the caller names another device; with
 no GPU and no device named it raises instead of running on the CPU.
-Mesh configs, the device-chargram path (``run_bytes``) and ragged
-minibatch input are not ported yet and raise ``NotImplementedError``.
+Mesh configs and the device-chargram path (``run_bytes``) are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,10 +35,11 @@ import torch
 from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
 from tfidf_tpu_torch.formatter import (format_records, format_sparse_records,
                                        to_output_bytes)
-from tfidf_tpu_torch.io.corpus import Corpus, PackedBatch, pack_corpus
+from tfidf_tpu_torch.io.corpus import (Batch, Corpus, PackedBatch,
+                                       RaggedBatch, pack_corpus)
 from tfidf_tpu_torch.ops.downlink import (unpack_result_words,
                                           use_packed_result_wire)
-from tfidf_tpu_torch.ops.kernels import pack_words, tf_df
+from tfidf_tpu_torch.ops.kernels import pack_words, ragged_rebuild, tf_df
 from tfidf_tpu_torch.ops.scoring import canonical_score_dtype, tfidf_dense
 from tfidf_tpu_torch.ops.sparse import sparse_forward
 from tfidf_tpu_torch.ops.topk import topk_per_doc
@@ -139,17 +144,25 @@ class TfidfPipeline(PhaseTimedMixin):
                 "mesh_shape runs (the JAX package's ShardedPipeline) are "
                 "not ported yet: ROADMAP A9")
 
-    def _place(self, batch: PackedBatch):
-        if not isinstance(batch, PackedBatch):
-            raise NotImplementedError(
-                f"{type(batch).__name__} input: only the padded PackedBatch "
-                "is ported; the ragged minibatch wire comes with ROADMAP A5")
+    def _place(self, batch: Batch):
+        """Device placement of either wire. A PackedBatch ships the padded
+        [D, L] ids; a RaggedBatch ships its flat aligned stream (bytes
+        scale with real tokens) and the padded batch is rebuilt on the
+        device (``ops.kernels.ragged_rebuild``)."""
+        if not isinstance(batch, (PackedBatch, RaggedBatch)):
+            raise TypeError(f"{type(batch).__name__} input: run_packed takes "
+                            f"a PackedBatch or a RaggedBatch")
+        lens = torch.from_numpy(
+            np.asarray(batch.lengths, dtype=np.int32)).to(self.device)
+        if isinstance(batch, RaggedBatch):
+            flat = torch.from_numpy(np.ascontiguousarray(batch.flat))
+            return ragged_rebuild(flat.to(self.device), lens,
+                                  length=batch.length,
+                                  align=batch.align), lens
         toks = np.asarray(batch.token_ids)
         if toks.dtype != np.int32:
             toks = toks.astype(np.int32)  # uint16 wire ids widen here
-        lens = np.asarray(batch.lengths, dtype=np.int32)
-        return (torch.from_numpy(toks).to(self.device),
-                torch.from_numpy(lens).to(self.device))
+        return torch.from_numpy(toks).to(self.device), lens
 
     def _fetch_topk(self, df, tv, ti, vocab_size: int):
         """Fetch (df, top-k): on the packed wire the [D, K] selection
@@ -162,7 +175,7 @@ class TfidfPipeline(PhaseTimedMixin):
             return _host(df), vals, ids
         return _host(df), _host(tv), _host(ti)
 
-    def run_packed(self, batch: PackedBatch) -> PipelineResult:
+    def run_packed(self, batch: Batch) -> PipelineResult:
         self._check_single_device()
         cfg = self.config
         if cfg.engine == "sparse":
@@ -193,7 +206,7 @@ class TfidfPipeline(PhaseTimedMixin):
             result.scores = out[2]
         return result
 
-    def _run_sparse(self, batch: PackedBatch) -> PipelineResult:
+    def _run_sparse(self, batch: Batch) -> PipelineResult:
         """Row-sparse engine: O(D x L) memory, no [D, V] matrix."""
         cfg = self.config
         with self._phase("transfer"):
