@@ -53,6 +53,22 @@ Phases, each printed as one JSON line:
    regime (``TFIDF_TPU_RESIDENT_ELEMS`` below it, 4 chunks of 8,192, the
    triple cache sized for 2 of them), spill host and reread, ragged and
    bytes wires: words, df and lengths equal the resident run's.
+9. ``path_retrieval``: ``TfidfRetriever(cfg).index_dir`` on the 131,072
+   ingest documents (doc_len 256, 16 chunks of 8,192, ragged wire: B4),
+   then searches of 256 Zipf queries at Q = 1, 64 and 256, k = 10, under
+   tfidf, bm25, bm25:k1=1.5,b=0.6 and an id_range filter: B6 launches
+   once per 4,096-row tile per search. Tiled = untiled and tile width
+   1,024 = 4,096 bit for bit; the first 64 rows of a Q = 256 search
+   equal the Q = 64 search; a snapshot restored on the CPU and an
+   8,192-doc index built on both devices agree with the card
+   (``compare_search``). Prints index seconds, warm search latency and
+   qps, the host time of ``fill_query_matrix`` and a device profile of
+   one warm Q = 64 search.
+10. ``kernel_cases_b6``: B6 on real tiles of that index (4,096 rows,
+   L = 256, V = 2^16) at Q = 64 and 256 on the tfidf and bm25 faces,
+   Q = 1, 3 and 33, a ragged tile and all-dead rows, each bit-equal to
+   the plain version; its times against ``torch.sparse.mm`` of the tile
+   as a CSR matrix (built outside the timed span).
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": ...}``.
@@ -88,6 +104,14 @@ SPARSE_VOCAB = 1 << 16
 DENSE_VOCAB = 4096
 INGEST_DOCS = 4 * N_DOCS  # path_ingest_resident: 4 chunks of N_DOCS
 STREAM_CHUNK = 8192       # path_ingest_streaming: 4 chunks of N_DOCS
+RETR_CHUNK = 8192         # path_retrieval: 16 chunks of the ingest corpus
+RETR_TILE = 4096          # the default doc tile (TFIDF_TPU_QUERY_BLOCK)
+RETR_K = 10
+RETR_QUERIES = 256
+RETR_SMALL = 8192         # path_retrieval: the index built on both devices
+# FP32 fused multiply-adds per second: the data sheet's 67 TFLOP/s of
+# float32 outside the tensor cores, two operations per FMA.
+FP32_FMA_PER_S = 67e12 / 2
 
 
 def emit(obj) -> None:
@@ -742,6 +766,25 @@ def path_ingest_resident(T, K, FT, ingest, root, corpus_docs, total):
     return rg
 
 
+class env_vars:
+    """Set environment variables for a block, then restore them."""
+
+    def __init__(self, **kv):
+        self.kv = kv
+        self.saved = {}
+
+    def __enter__(self):
+        self.saved = {k_: os.environ.get(k_) for k_ in self.kv}
+        os.environ.update(self.kv)
+
+    def __exit__(self, *exc):
+        for k_, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v
+
+
 def path_ingest_streaming(T, K, FT, ingest, root, total):
     """The streaming regime (2 of 4 chunks triple-cached) equals the
     resident run of the same corpus, on the ragged and bytes wires."""
@@ -749,7 +792,6 @@ def path_ingest_streaming(T, K, FT, ingest, root, total):
     env = {"TFIDF_TPU_RESIDENT_ELEMS": str(n * DOC_LEN - 1),
            "TFIDF_TPU_TRIPLE_CACHE_BYTES": str(
                2 * (STREAM_CHUNK * DOC_LEN * 9 + STREAM_CHUNK * 4))}
-    saved = {k_: os.environ.get(k_) for k_ in env}
 
     def cfg(w):
         return T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
@@ -761,8 +803,7 @@ def path_ingest_streaming(T, K, FT, ingest, root, total):
     check(resident.path == "resident", "path_ingest_streaming: reference "
           "run is not resident")
     runs = {}
-    try:
-        os.environ.update(env)
+    with env_vars(**env):
         for w in ("ragged", "bytes"):
             for spill in ("host", "reread"):
                 fn = (lambda w=w, spill=spill: ingest.run_overlapped(
@@ -787,15 +828,266 @@ def path_ingest_streaming(T, K, FT, ingest, root, total):
                                "launches": launches, "native_calls": native,
                                "phases": r.phases,
                                "fields": _result_fields(r)}
-    finally:
-        for k_, v in saved.items():
-            if v is None:
-                os.environ.pop(k_, None)
-            else:
-                os.environ[k_] = v
     emit({"phase": "path_ingest_streaming", "docs": n,
           "chunk_docs": STREAM_CHUNK, "env": env, "runs": runs,
           "equal_to_resident": True, "ok": True})
+
+
+def retrieval_queries(rng, n: int = RETR_QUERIES):
+    """``n`` queries of 2-6 words from the corpus's vocabulary, word
+    ranks drawn Zipf(1.3) as the documents' are."""
+    ranks = np.clip(rng.zipf(1.3, n * 6), 1, N_WORDS) - 1
+    lens = rng.integers(2, 7, n)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [" ".join(f"w{r}" for r in ranks[offs[i]:offs[i + 1]])
+            for i in range(n)]
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median host milliseconds of one ``fn()`` that ends on the host
+    (a search returns host arrays, so its device work is inside)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _same_search(a, b) -> bool:
+    return (np.array_equal(a[1], b[1])
+            and np.array_equal(np.asarray(a[0], np.float32).view(np.uint32),
+                               np.asarray(b[0], np.float32).view(np.uint32)))
+
+
+RETR_SETTINGS = {"tfidf": {}, "bm25": {"scorer": "bm25"},
+                 "bm25:k1=1.5,b=0.6": {"scorer": "bm25:k1=1.5,b=0.6"},
+                 "tfidf+id_range": {"filter": {"id_range": [0, 65536]}}}
+
+
+def path_retrieval(T, K, root, corpus_docs, total):
+    """TfidfRetriever on the ingest corpus: index_dir (B4), searches
+    (B6), the within-port equalities and the card-vs-CPU agreement."""
+    from tfidf_tpu_torch.models import retrieval as R
+    from tfidf_tpu_torch.parity import compare_search
+
+    n = len(corpus_docs)
+    cfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                           vocab_size=SPARSE_VOCAB)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = T.TfidfRetriever(cfg).index_dir(root, doc_len=DOC_LEN,
+                                        chunk_docs=RETR_CHUNK)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    index_launches = dict(K.LAUNCHES)
+    for kernel, c in index_launches.items():
+        total[kernel] += c
+    check(index_launches["ragged_rebuild"] == n // RETR_CHUNK,
+          f"path_retrieval: index_dir launched B4 "
+          f"{index_launches['ragged_rebuild']} times, not {n // RETR_CHUNK}")
+    check(tuple(r._ids.shape) == (n, DOC_LEN) and r._num_docs == n,
+          f"path_retrieval: index shape {tuple(r._ids.shape)}")
+    index_mb = sum(t.nbytes for t in (r._ids, r._weights, r._head)) / 1e6
+    queries = retrieval_queries(np.random.default_rng(SEED + 3))
+    n_tiles = -(-n // RETR_TILE)
+    results, latency, launches_per_search = {}, {}, {}
+    for name, kw in RETR_SETTINGS.items():
+        for q in (1, 64, RETR_QUERIES):
+            qs = queries[:q]
+            r.search(qs, k=RETR_K, **kw)  # warm: derives the scorer's face
+            K.reset_launches()
+            torch.cuda.synchronize()
+            res = r.search(qs, k=RETR_K, **kw)
+            launches = dict(K.LAUNCHES)
+            for kernel, c in launches.items():
+                total[kernel] += c
+            check(launches["tile_scores"] == n_tiles,
+                  f"path_retrieval {name} Q={q}: B6 launched "
+                  f"{launches['tile_scores']} times, not once per tile "
+                  f"({n_tiles})")
+            vals, ids = res
+            check(vals.shape == ids.shape == (q, RETR_K)
+                  and np.isfinite(vals).all() and (vals >= 0).all()
+                  and ((ids >= -1) & (ids < n)).all()
+                  and ((ids >= 0) == (vals > 0)).all()
+                  and (np.diff(vals, axis=1) <= 0).all(),
+                  f"path_retrieval {name} Q={q}: malformed result")
+            check((ids >= 0).sum() > q * RETR_K // 2,
+                  f"path_retrieval {name} Q={q}: too few results")
+            if "filter" in kw:
+                check((ids < 65536).all(), "path_retrieval: the id_range "
+                      "filter let a row past 65,536 through")
+            results[name, q] = res
+            launches_per_search[f"{name}/Q{q}"] = launches["tile_scores"]
+            ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw))
+            latency[f"{name}/Q{q}"] = {"ms": ms, "qps": q / ms * 1e3}
+    for name, kw in RETR_SETTINGS.items():
+        big = results[name, RETR_QUERIES]
+        check(_same_search((big[0][:64], big[1][:64]), results[name, 64]),
+              f"path_retrieval {name}: the first 64 rows of the Q=256 "
+              f"search differ from the Q=64 search")
+        for q in (64, RETR_QUERIES):
+            with env_vars(TFIDF_TPU_SCORE_TILING="off"):
+                off = r.search(queries[:q], k=RETR_K, **kw)
+            with env_vars(TFIDF_TPU_QUERY_BLOCK="1024"):
+                narrow = r.search(queries[:q], k=RETR_K, **kw)
+            check(_same_search(off, results[name, q]),
+                  f"path_retrieval {name} Q={q}: untiled differs from tiled")
+            check(_same_search(narrow, results[name, q]),
+                  f"path_retrieval {name} Q={q}: tile 1,024 differs from "
+                  f"4,096")
+    fill = {}
+    for q in (64, RETR_QUERIES):
+        buf = np.empty((SPARSE_VOCAB, q), np.float32)
+        fill[f"Q{q}"] = host_ms(lambda: R.fill_query_matrix(
+            queries[:q], cfg, r._idf_host(), buf), reps=5, warmup=1)
+    prof = profile_summary(lambda: r.search(queries[:64], k=RETR_K))
+
+    # a snapshot taken on the card, searched on the CPU
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(root)) as snap:
+        t0 = time.perf_counter()
+        r.snapshot(snap)
+        snap_s = time.perf_counter() - t0
+        cpu_r, _ = T.TfidfRetriever.restore(snap, device="cpu")
+    t0 = time.perf_counter()
+    cpu_res = cpu_r.search(queries[:64], k=RETR_K)
+    cpu_search_s = time.perf_counter() - t0
+    vs_cpu = compare_search(*results["tfidf", 64], *cpu_res)
+    check(vs_cpu["ok"], f"path_retrieval: card vs CPU restore: {vs_cpu}")
+    del cpu_r
+    # an 8,192-doc index built on both devices (the batch index path)
+    small = T.Corpus(names=[f"doc{i}" for i in range(1, RETR_SMALL + 1)],
+                     docs=corpus_docs[:RETR_SMALL])
+    g = T.TfidfRetriever(cfg).index(small)
+    c = T.TfidfRetriever(cfg, device="cpu").index(small)
+    small_cmp = {"weights_bit_equal": same_bits(g._weights.cpu(), c._weights),
+                 "idf_bit_equal": same_bits(g._idf.cpu(), c._idf)}
+    for name, kw in RETR_SETTINGS.items():
+        a = g.search(queries[:64], k=RETR_K, **kw)
+        b = c.search(queries[:64], k=RETR_K, **kw)
+        cmp = compare_search(*a, *b, val_ulps=4 if "bm25" in name else 0)
+        check(cmp["ok"], f"path_retrieval: {RETR_SMALL}-doc index, card vs "
+              f"CPU, {name}: {cmp}")
+        small_cmp[name] = cmp
+    emit({"phase": "path_retrieval", "docs": n, "doc_len": DOC_LEN,
+          "chunk_docs": RETR_CHUNK, "vocab": SPARSE_VOCAB, "k": RETR_K,
+          "tile": RETR_TILE, "n_tiles": n_tiles, "index_s": index_s,
+          "index_mb": index_mb, "index_launches": index_launches,
+          "search_launches_b6": launches_per_search,
+          "search_latency": latency, "fill_query_matrix_ms": fill,
+          "tiled_equals_untiled": True, "tile_1024_equals_4096": True,
+          "q256_prefix_equals_q64": True, "snapshot_s": snap_s,
+          "vs_cpu_restore": vs_cpu, "cpu_search_q64_s": cpu_search_s,
+          "small_index_vs_cpu": small_cmp,
+          "device_profile_q64": prof, "ok": True})
+    return r, cfg, queries
+
+
+def b6_bound(data, cols, q: int):
+    """What one tile-scores call needs at this data: data at every slot,
+    cols at live slots, the qmat rows of the distinct live columns (Q
+    floats each), the output; and one FMA per live slot and query."""
+    live = data != 0
+    n_live = int(live.sum())
+    n_distinct = int(torch.unique(cols[live]).numel())
+    rows, length = data.shape
+    nbytes = rows * length * 4 + n_live * 4 + n_distinct * q * 4 + rows * q * 4
+    fmas = n_live * q
+    bytes_ms = bound_ms(nbytes)
+    ops_ms = fmas / FP32_FMA_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
+            "live_slots": n_live, "distinct_columns": n_distinct,
+            "bytes": nbytes, "fmas": fmas}
+
+
+def b6_kernel_cases(K, R, r, cfg, queries, summary):
+    """B6 against its plain version on real tiles of the retrieval
+    index, and its times at Q = 64 (the kernels line) and Q = 256."""
+    from tfidf_tpu_torch.scoring import parse_scorer
+
+    dev = r.device
+    cases = []
+    faces = {"tfidf": r._scorer_face(parse_scorer("tfidf")),
+             "bm25": r._scorer_face(parse_scorer("bm25"))}
+
+    def qmat_for(kind, q):
+        mode = "counts" if kind == "bm25" else "cosine"
+        return torch.from_numpy(R.query_matrix(
+            queries[:q], cfg, r._idf_host(), mode=mode)).to(dev)
+
+    def case(label, data, cols, qmat, dead_rows=0):
+        got = K.tile_scores(data, cols, qmat)
+        want = K.tile_scores_plain(data, cols, qmat)
+        torch.cuda.synchronize()
+        check(same_bits(got, want), f"B6 {label}: differs from plain")
+        if dead_rows:
+            check(bool((got[:dead_rows] == 0).all()),
+                  f"B6 {label}: all-dead rows do not score 0")
+        cases.append({"kernel": "tile_scores", "case": label,
+                      "shape": [*data.shape, *qmat.shape],
+                      "whole_output_bit_equal": True, "max_abs_err": 0.0})
+
+    tiles = {}
+    for kind, (data, cols) in faces.items():
+        d_t, c_t = data[:RETR_TILE], cols[:RETR_TILE]
+        for q in (64, RETR_QUERIES):
+            qm = qmat_for(kind, q)
+            tiles[kind, q] = (d_t, c_t, qm)
+            case(f"{kind}_q{q}", d_t, c_t, qm)
+    d_t, c_t = faces["tfidf"][0][:RETR_TILE], faces["tfidf"][1][:RETR_TILE]
+    for q in (1, 3, 33):
+        case(f"tfidf_q{q}", d_t, c_t, qmat_for("tfidf", q))
+    q64 = tiles["tfidf", 64][2]
+    ragged = 3001
+    case(f"ragged_{ragged}_rows_q64", faces["tfidf"][0][:ragged].contiguous(),
+         faces["tfidf"][1][:ragged].contiguous(), q64)
+    dead = d_t.clone()
+    dead[:512] = 0
+    case("dead_rows_0_512_q64", dead, c_t, q64, dead_rows=512)
+    emit({"phase": "kernel_cases_b6", "cases": cases})
+
+    def timed(kind, q):
+        data, cols, qmat = tiles[kind, q]
+        live = data != 0
+        crow = torch.zeros(data.shape[0] + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(live.sum(dim=1), 0)
+        csr = torch.sparse_csr_tensor(crow, cols[live].to(torch.int64),
+                                      data[live],
+                                      size=(data.shape[0], SPARSE_VOCAB),
+                                      check_invariants=False)
+        lib = torch.sparse.mm(csr, qmat)
+        kern = K.tile_scores(data, cols, qmat)
+        torch.cuda.synchronize()
+        out = torch.empty_like(kern)
+        times = kernel_times(
+            lambda: K.tile_scores(data, cols, qmat),
+            lambda: K.tile_scores_plain(data, cols, qmat),
+            lambda: torch.sparse.mm(csr, qmat),
+            kernel_only=lambda: K.tile_scores_launch(data, cols, qmat, out))
+        torch.cuda.synchronize()
+        check(same_bits(out, kern), f"B6 {kind} Q={q}: the timed launch's "
+              f"output differs")
+        bound = b6_bound(data, cols, q)
+        return {**times, **bound, "kernel_bound_ms": bound["bound_ms"],
+                "library_max_abs_err": (lib - kern).abs().max().item(),
+                "max_abs_err": 0.0,
+                "shape": {"rows": data.shape[0], "L": data.shape[1],
+                          "V": SPARSE_VOCAB, "Q": q, "face": kind}}
+
+    main = timed("tfidf", 64)
+    main["library_call"] = ("torch.sparse.mm(tile as CSR [4096, V], qmat) "
+                            "(CSR built outside the timed span)")
+    main["other_shapes"] = {f"{kind}_q{q}": timed(kind, q)
+                            for kind, q in (("tfidf", RETR_QUERIES),
+                                            ("bm25", 64),
+                                            ("bm25", RETR_QUERIES))}
+    summary["tile_scores"] = main
 
 
 def main() -> int:
@@ -861,6 +1153,10 @@ def main() -> int:
               "write_s": time.perf_counter() - t0})
         path_ingest_resident(T, K, FT, ingest, big, big_docs, total)
         path_ingest_streaming(T, K, FT, ingest, small, total)
+        r, rcfg, queries = path_retrieval(T, K, big, big_docs, total)
+        from tfidf_tpu_torch.models import retrieval as R
+        b6_kernel_cases(K, R, r, rcfg, queries, summary)
+        del r
 
     sources = {"fused_score_topk": ("tfidf_tpu_torch/csrc/score_topk.cu",
                                     "tfidf_tpu/ops/pallas_kernels.py:466"),
@@ -871,7 +1167,9 @@ def main() -> int:
                "ragged_rebuild": ("tfidf_tpu_torch/csrc/ragged_rebuild.cu",
                                   "tfidf_tpu/ops/pallas_kernels.py:210"),
                "tokenize_hash": ("tfidf_tpu_torch/csrc/tokenize_hash.cu",
-                                 "tfidf_tpu/ops/pallas_kernels.py:388")}
+                                 "tfidf_tpu/ops/pallas_kernels.py:388"),
+               "tile_scores": ("tfidf_tpu_torch/csrc/tile_scores.cu",
+                               "tfidf_tpu/ops/pallas_kernels.py:526")}
     rows = []
     for kernel, (src, replaces) in sources.items():
         s = summary[kernel]
@@ -886,7 +1184,8 @@ def main() -> int:
                      "call_ms": s["call_ms"], "shape": s["shape"],
                      **{key: s[key] for key in (
                          "library_call", "bytes_bound_ms",
-                         "operations_bound_ms") if key in s}})
+                         "operations_bound_ms", "library_max_abs_err",
+                         "other_shapes") if key in s}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

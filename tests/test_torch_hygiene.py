@@ -45,6 +45,17 @@ def _forbidden(module: str) -> bool:
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = list(_port_files())
     assert len(files) > 15
+    # the retrieval slice's modules, including the jax-free copies of the
+    # JAX package's checkpoint, query slab and scoring modules, are here
+    rel = {os.path.relpath(p, REPO) for p in files}
+    for path in ("tfidf_tpu_torch/models/__init__.py",
+                 "tfidf_tpu_torch/models/retrieval.py",
+                 "tfidf_tpu_torch/scoring/__init__.py",
+                 "tfidf_tpu_torch/scoring/family.py",
+                 "tfidf_tpu_torch/scoring/filters.py",
+                 "tfidf_tpu_torch/checkpoint.py",
+                 "tfidf_tpu_torch/ops/queryslab.py"):
+        assert path in rel
     offenders = []
     for path in files:
         with open(path, encoding="utf-8") as f:
@@ -113,7 +124,8 @@ def test_wrappers_never_serve_cuda_tensors_from_the_plain_path(no_gpu,
         raise AssertionError("plain path ran for CUDA tensors")
 
     for name in ("fused_score_topk_plain", "tf_df_plain", "pack_words_plain",
-                 "ragged_rebuild_plain", "tokenize_hash_plain"):
+                 "ragged_rebuild_plain", "tokenize_hash_plain",
+                 "tile_scores_plain"):
         monkeypatch.setattr(K, name, plain_must_not_run)
     K.reset_launches()
     ids = _cuda_looking(np.zeros((2, 4), np.int32))
@@ -135,7 +147,45 @@ def test_wrappers_never_serve_cuda_tensors_from_the_plain_path(no_gpu,
         with pytest.raises(RuntimeError, match="no CUDA device"):
             K.tokenize_hash(_cuda_looking(np.full(8, 32, dtype)), ids, lens,
                             vocab_size=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        K.tile_scores(vals, ids, _cuda_looking(np.ones((4, 3), np.float32)))
     assert all(n == 0 for n in K.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("case,err", [
+    ("data_dtype", TypeError), ("cols_dtype", TypeError),
+    ("qmat_dtype", TypeError), ("data_ndim", ValueError),
+    ("cols_shape", ValueError), ("noncontiguous", ValueError),
+    ("out_shape", ValueError), ("out_dtype", TypeError)])
+def test_tile_scores_rejects_bad_cuda_inputs(monkeypatch, case, err):
+    # checks made before any launch (a card is reported; nothing may
+    # reach the kernel library, which would need nvcc)
+    from tfidf_tpu_torch.ops import _build
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(_build, "load", lambda: pytest.fail("launched"))
+    data = np.ones((4, 6), np.float32)
+    cols = np.zeros((4, 6), np.int32)
+    qmat = np.ones((8, 3), np.float32)
+    out = None
+    if case == "data_dtype":
+        data = data.astype(np.float16)
+    elif case == "cols_dtype":
+        cols = cols.astype(np.int64)
+    elif case == "qmat_dtype":
+        qmat = qmat.astype(np.float64)
+    elif case == "data_ndim":
+        data, cols = data.reshape(-1), cols.reshape(-1)
+    elif case == "cols_shape":
+        cols = cols[:, :5]
+    elif case == "out_shape":
+        out = _cuda_looking(np.zeros((4, 2), np.float32))
+    elif case == "out_dtype":
+        out = _cuda_looking(np.zeros((4, 3), np.float64))
+    args = [_cuda_looking(data), _cuda_looking(cols), _cuda_looking(qmat)]
+    if case == "noncontiguous":
+        args[0] = _cuda_looking(np.ones((6, 4), np.float32)).t()
+    with pytest.raises(err):
+        K.tile_scores(*args, out=out)
 
 
 def test_wrappers_reject_mixed_and_other_devices():
@@ -154,15 +204,39 @@ def test_build_happens_at_first_gpu_use_not_at_import():
     assert set(_build.SIGNATURES) == {"tfidf_fused_score_topk", "tfidf_tf_df",
                                       "tfidf_pack_words",
                                       "tfidf_ragged_rebuild",
-                                      "tfidf_tokenize_hash"}
+                                      "tfidf_tokenize_hash",
+                                      "tfidf_tile_scores"}
     assert {p.name for p in _build.sources()} == {
         "score_topk.cu", "tf_df.cu", "pack_words.cu", "ragged_rebuild.cu",
-        "tokenize_hash.cu"}
+        "tokenize_hash.cu", "tile_scores.cu"}
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert _build.library_path().parent == _build.BUILD_DIR
     # the host loader library builds beside it, never into native/
     assert _build.host_library_path().parent == _build.BUILD_DIR
     assert all(p.exists() for p in _build.host_sources())
+
+
+def test_retriever_without_gpu_raises(no_gpu, toy_corpus_dir, tmp_path):
+    cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.TfidfRetriever(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.TfidfRetriever(cfg, device="cuda")
+    r = T.TfidfRetriever(cfg, device="cpu").index_dir(toy_corpus_dir)
+    r.snapshot(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.TfidfRetriever.restore(str(tmp_path))
+    assert T.TfidfRetriever.restore(str(tmp_path), device="cpu")[0].indexed
+
+
+def test_cli_query_without_gpu_raises(no_gpu, toy_corpus_dir, capsys):
+    args = ["query", "--input", toy_corpus_dir, "--query", "a b"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args + ["--doc-len", "16"])
+    assert capsys.readouterr().out == ""
+    assert cli.main(args + ["--device", "cpu"]) == 0
 
 
 def test_run_overlapped_without_gpu_raises(no_gpu, toy_corpus_dir):

@@ -20,7 +20,8 @@ from tfidf_tpu.ops import device_tokenize as jdt
 from tfidf_tpu.ops.pallas_kernels import (fused_score_topk_pallas,
                                           pack_words_pallas,
                                           ragged_rebuild_pallas,
-                                          tf_df_pallas, tokenize_hash_pallas)
+                                          tf_df_pallas, tile_scores_pallas,
+                                          tokenize_hash_pallas)
 from tfidf_tpu.ops.sparse import sorted_term_counts as jax_sorted_term_counts
 from tfidf_tpu_torch.ops import kernels as K
 
@@ -276,8 +277,12 @@ def test_cpu_calls_count_no_launches():
     K.ragged_rebuild(_t(np.zeros(16, np.uint16)), _t(lens), length=8, align=8)
     K.tokenize_hash(_t(np.full(8, 32, np.uint8)),
                     _t(np.zeros((4, 8), np.int32)), _t(lens), vocab_size=16)
+    K.tile_scores(_t(np.ones((4, 8), np.float32)),
+                  _t(np.zeros((4, 8), np.int32)),
+                  _t(np.ones((16, 3), np.float32)))
     assert K.LAUNCHES == {"fused_score_topk": 0, "tf_df": 0, "pack_words": 0,
-                          "ragged_rebuild": 0, "tokenize_hash": 0}
+                          "ragged_rebuild": 0, "tokenize_hash": 0,
+                          "tile_scores": 0}
 
 
 def test_pack_words_into_out():
@@ -414,3 +419,77 @@ class TestTokenizeHash:
         with pytest.raises(ValueError, match="2\\^16"):
             K.tokenize_hash(_t(slab), _t(starts), _t(lens),
                             vocab_size=(1 << 16) + 1)
+
+
+def _tile_case(seed, rows, length, vocab, q, quantize=True, dead_rows=()):
+    """A random row-sparse tile and query block (numpy). Quantized values
+    (multiples of 0.5) make every sum exact, so any summation order gives
+    the same bits; dead slots carry data 0 at a random column."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, vocab, (rows, length)).astype(np.int32)
+    if quantize:
+        data = (rng.integers(0, 4, (rows, length)) * 0.5).astype(np.float32)
+        qmat = (rng.integers(0, 3, (vocab, q)) * 0.5).astype(np.float32)
+    else:
+        data = rng.random((rows, length)).astype(np.float32)
+        data[rng.random((rows, length)) < 0.3] = 0.0
+        qmat = rng.random((vocab, q)).astype(np.float32)
+    data[list(dead_rows)] = 0.0
+    return data, cols, qmat
+
+
+class TestTileScores:
+    """B6: the plain version against ``tile_scores_pallas`` in interpret
+    mode — exact on quantized inputs, rtol 1e-6 (the JAX package's own
+    contract for the kernel, tests/test_tiled_score.py) on continuous
+    ones, where the two sum the L slots in possibly different roundings.
+    The CUDA kernel equals the plain version bit for bit (chip_smoke.py)."""
+
+    @pytest.mark.parametrize("q", [1, 3, 33, 64])
+    @pytest.mark.parametrize("rows,length,vocab", [(37, 8, 64), (13, 16, 512)])
+    def test_quantized_exact(self, q, rows, length, vocab):
+        data, cols, qmat = _tile_case(q + rows, rows, length, vocab, q,
+                                      dead_rows=(0, rows - 1))
+        want = np.asarray(tile_scores_pallas(
+            jnp.asarray(data), jnp.asarray(cols), jnp.asarray(qmat),
+            interpret=True))
+        got = K.tile_scores(_t(data), _t(cols), _t(qmat))
+        assert got.dtype == torch.float32 and tuple(got.shape) == (rows, q)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      want.view(np.uint32))
+        assert (got.numpy()[[0, rows - 1]] == 0).all()  # all-dead rows
+
+    @pytest.mark.parametrize("q", [1, 3, 33, 64])
+    def test_continuous_rtol(self, q):
+        data, cols, qmat = _tile_case(100 + q, 29, 12, 300, q, quantize=False,
+                                      dead_rows=(5,))
+        want = np.asarray(tile_scores_pallas(
+            jnp.asarray(data), jnp.asarray(cols), jnp.asarray(qmat),
+            interpret=True))
+        got = K.tile_scores(_t(data), _t(cols), _t(qmat)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        # the plain version is a float32 multiply, then add, slot by slot
+        ref = np.zeros((29, q), np.float32)
+        for sl in range(12):
+            ref = ref + data[:, sl, None] * qmat[cols[:, sl]]
+        np.testing.assert_array_equal(got, ref)
+
+    def test_out_buffer_and_zero_rows(self):
+        data, cols, qmat = _tile_case(7, 10, 4, 32, 5)
+        out = torch.full((10, 5), 123.0)
+        got = K.tile_scores(_t(data), _t(cols), _t(qmat), out=out)
+        assert got is out
+        np.testing.assert_array_equal(
+            out.numpy(), K.tile_scores_plain(_t(data), _t(cols), _t(qmat)).numpy())
+        empty = K.tile_scores(_t(data[:0]), _t(cols[:0]), _t(qmat))
+        assert tuple(empty.shape) == (0, 5)
+
+    def test_weight_zero_slots_add_nothing(self):
+        # a dead slot's column is read by the plain version and skipped
+        # by the kernel: both give the live slots' sum exactly
+        data = np.array([[0.5, 0.0, 1.5, 0.0]], np.float32)
+        cols = np.array([[1, 2, 3, 0]], np.int32)
+        qmat = np.arange(8, dtype=np.float32).reshape(4, 2)
+        got = K.tile_scores(_t(data), _t(cols), _t(qmat)).numpy()
+        np.testing.assert_array_equal(got, [[0.5 * 2 + 1.5 * 6,
+                                             0.5 * 3 + 1.5 * 7]])

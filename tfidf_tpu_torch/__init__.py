@@ -7,13 +7,15 @@ use). It imports nothing of ``tfidf_tpu`` or JAX; the tests
 (``tests/test_torch_*.py``) run both packages on the same inputs.
 
 Entry points run on CUDA unless the caller names another device
-(``TfidfPipeline(cfg, device="cpu")``, ``cli run --device cpu``); with
-no GPU and no device named they raise.
+(``TfidfPipeline(cfg, device="cpu")``, ``TfidfRetriever(cfg,
+device="cpu")``, ``cli run|query --device cpu``); with no GPU and no
+device named they raise.
 """
 
 from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
 from tfidf_tpu_torch.io.corpus import (Corpus, PackedBatch, discover_corpus,
                                        pack_corpus)
+from tfidf_tpu_torch.models import TfidfRetriever
 from tfidf_tpu_torch.pipeline import PipelineResult, TfidfPipeline
 
 __all__ = [
@@ -22,6 +24,7 @@ __all__ = [
     "TokenizerKind",
     "TfidfPipeline",
     "PipelineResult",
+    "TfidfRetriever",
     "Corpus",
     "PackedBatch",
     "discover_corpus",

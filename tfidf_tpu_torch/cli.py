@@ -1,4 +1,5 @@
-"""Command line of the PyTorch/CUDA port: the ``run`` subcommand.
+"""Command line of the PyTorch/CUDA port: the ``run`` and ``query``
+subcommands.
 
     python -m tfidf_tpu_torch.cli run --input DIR [--output output.txt]
         [--vocab-mode exact|hashed] [--vocab-size N] [--topk K]
@@ -14,8 +15,19 @@ writes the top-k report in the JAX CLI's format. A hashed top-k run
 with ``--doc-len`` goes through the overlapped chunked ingest
 (``ingest.run_overlapped``; documents longer than L tokens are
 truncated, terms print as ``id:N``), any other run through
-``TfidfPipeline``. It runs on CUDA unless ``--device cpu`` is given, and
-fails when no GPU is present and no device was named.
+``TfidfPipeline``.
+
+    python -m tfidf_tpu_torch.cli query --input DIR --query TEXT
+        [--query TEXT ...] [-k K] [--vocab-size N] [--doc-len L]
+        [--no-strict] [--device cuda|cpu]
+
+indexes the directory (``TfidfRetriever.index_dir``; ``--doc-len``
+through the overlapped ingest's chunk step) and prints, per query,
+``query: <text>`` then one ``  <name>\t<score>`` line per result, as the
+JAX CLI's ``query`` does.
+
+Both run on CUDA unless ``--device cpu`` is given, and fail when no GPU
+is present and no device was named.
 """
 
 from __future__ import annotations
@@ -78,7 +90,48 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--pack-threads", type=int, default=None,
                      help="host packer threads of the native loader "
                           "(default every core; env TFIDF_TPU_PACK_THREADS)")
+    q = sub.add_parser(
+        "query", help="index a corpus and run ranked cosine retrieval")
+    q.add_argument("--input", required=True, help="document directory")
+    q.add_argument("--query", action="append", required=True,
+                   help="query text (repeatable)")
+    q.add_argument("-k", type=int, default=5, help="results per query")
+    q.add_argument("--vocab-size", type=int, default=1 << 16)
+    q.add_argument("--mesh-docs", type=int, default=None,
+                   help="shard the index over this many devices (not "
+                        "ported yet: ROADMAP A9)")
+    q.add_argument("--doc-len", type=int, default=None,
+                   help="static tokens per document: index via the "
+                        "overlapped ingest's chunk step (native loader; "
+                        "longer docs truncated)")
+    q.add_argument("--no-strict", action="store_true")
+    q.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' runs the "
+                        "kernels' plain versions)")
     return p
+
+
+def _run_query(args) -> int:
+    """Index + search: ``<name>\t<score>`` per result line."""
+    from tfidf_tpu_torch.config import PipelineConfig, VocabMode
+    from tfidf_tpu_torch.models import TfidfRetriever
+
+    if args.mesh_docs is not None:
+        raise NotImplementedError(
+            "query --mesh-docs (the docs-sharded index) is not ported yet: "
+            "ROADMAP A9")
+    cfg = PipelineConfig(vocab_mode=VocabMode.HASHED,
+                         vocab_size=args.vocab_size)
+    r = TfidfRetriever(cfg, device=args.device).index_dir(
+        args.input, strict=not args.no_strict, doc_len=args.doc_len)
+    vals, idx = r.search(args.query, k=args.k)
+    for qi, text in enumerate(args.query):
+        print(f"query: {text}")
+        for v, d in zip(vals[qi], idx[qi]):
+            if d < 0:
+                continue
+            print(f"  {r.names[int(d)]}\t{float(v):.6f}")
+    return 0
 
 
 def _write_topk(path: str, result) -> None:
@@ -181,7 +234,10 @@ def _run(args) -> int:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    return _run(_build_parser().parse_args(argv))
+    args = _build_parser().parse_args(argv)
+    if args.cmd == "query":
+        return _run_query(args)
+    return _run(args)
 
 
 if __name__ == "__main__":

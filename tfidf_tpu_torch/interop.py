@@ -1,13 +1,21 @@
 """State that crosses between the JAX package and this port.
 
-The pipeline has no learned weights: what crosses is the run's config
-and the packed batch, both as plain Python and numpy values, so this
-module imports neither package's arrays. With them, one batch packed by
-either package runs through both.
+The pipeline has no learned weights: what crosses is the run's config,
+the packed batch and a built retrieval index, all as plain Python and
+numpy values, so this module imports neither package's arrays. With
+them, one batch packed by either package runs through both, and a JAX
+retriever's index serves from the port:
 
     cfg_t = config_from_dict(dataclasses.asdict(jax_cfg))
     batch_t = batch_from_numpy(b.token_ids, b.lengths, b.num_docs,
                                b.names, b.vocab_size, b.id_to_word)
+    r_t = index_arrays_from_numpy(
+        np.asarray(r._ids), np.asarray(r._weights), np.asarray(r._head),
+        np.asarray(r._idf), r.names, r._num_docs,
+        dataclasses.asdict(r.config), device="cpu")
+
+Snapshots are the other route: ``checkpoint.save_index`` writes the
+same files in both packages.
 """
 
 from __future__ import annotations
@@ -61,3 +69,30 @@ def batch_from_numpy(token_ids, lengths, num_docs: int, names: Sequence[str],
                        num_docs=int(num_docs), names=list(names),
                        vocab_size=int(vocab_size),
                        id_to_word=dict(id_to_word or {}))
+
+
+def index_arrays_from_numpy(ids, weights, head, idf, names: Sequence[str],
+                            num_docs: int, config_dict: dict, *,
+                            scorer=None, fields=None, device=None):
+    """A port ``TfidfRetriever`` serving a built index given as host
+    arrays (e.g. a JAX retriever's ``_ids``, ``_weights``, ``_head``,
+    ``_idf``): ids int32 [D, L], weights float32 [D, L], head bool
+    [D, L], idf float32 [V]. ``scorer`` is the index-default scorer and
+    ``fields`` a fielded index's ``[(name, weight, start, stop)]`` slot
+    spans. ``device`` as for ``TfidfRetriever``."""
+    from tfidf_tpu_torch.models.retrieval import TfidfRetriever
+
+    r = TfidfRetriever(config_from_dict(config_dict), scorer=scorer,
+                       device=device)
+    arrays = [np.asarray(ids, np.int32), np.asarray(weights, np.float32),
+              np.asarray(head, bool), np.asarray(idf, np.float32)]
+    if not (arrays[0].shape == arrays[1].shape == arrays[2].shape):
+        raise ValueError(f"ids {arrays[0].shape}, weights {arrays[1].shape} "
+                         f"and head {arrays[2].shape} disagree")
+    if len(names) != int(num_docs) or int(num_docs) > arrays[0].shape[0]:
+        raise ValueError(f"{len(names)} names, num_docs {num_docs}, "
+                         f"{arrays[0].shape[0]} rows")
+    spans = ([(str(f), float(w), int(s), int(e)) for f, w, s, e in fields]
+             if fields else None)
+    return r._install(*(r._to_device(a) for a in arrays), names, num_docs,
+                      fields=spans)

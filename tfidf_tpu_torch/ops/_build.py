@@ -68,6 +68,8 @@ SIGNATURES = {
     # vocab_size, truncate_at, stream
     "tfidf_tokenize_hash": [_P, _I, _LL, _P, _P, _P, _I, _I,
                             ctypes.c_uint64, _I, _I, _P],
+    # data, cols, qmat, out, rows, L, Q, stream
+    "tfidf_tile_scores": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -10,6 +10,7 @@ wrapper                    replaces (tfidf_tpu/ops/pallas_kernels.py)
 :func:`pack_words`         ``pack_words_pallas`` — csrc/pack_words.cu
 :func:`ragged_rebuild`     ``ragged_rebuild_pallas`` — csrc/ragged_rebuild.cu
 :func:`tokenize_hash`      ``tokenize_hash_pallas`` — csrc/tokenize_hash.cu
+:func:`tile_scores`        ``tile_scores_pallas`` — csrc/tile_scores.cu
 =========================  =============================================
 
 Each wrapper has the JAX function's signature (less ``interpret``). On
@@ -35,7 +36,8 @@ from tfidf_tpu_torch.ops.histogram import (df_from_counts, tf_counts_masked,
 from tfidf_tpu_torch.ops.sparse import sparse_scores, sparse_topk
 
 LAUNCHES: Dict[str, int] = {"fused_score_topk": 0, "tf_df": 0, "pack_words": 0,
-                            "ragged_rebuild": 0, "tokenize_hash": 0}
+                            "ragged_rebuild": 0, "tokenize_hash": 0,
+                            "tile_scores": 0}
 
 # dtype codes of csrc/common.cuh and csrc/tokenize_hash.cu
 _SCORE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -362,3 +364,67 @@ def tokenize_hash(slab: torch.Tensor, starts: torch.Tensor,
             _ptr(lengths), _ptr(ids), d, length,
             ctypes.c_uint64((hi << 32) | lo), vocab_size, truncate_at)
     return ids
+
+
+# --- B6: tile scores ----------------------------------------------------
+
+def tile_scores_plain(data: torch.Tensor, cols: torch.Tensor,
+                      qmat: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``acc = acc + data[:, l] * qmat[cols[:, l]]`` for l
+    ascending, one multiply and one add per slot (two roundings, no
+    fused multiply-add), from zeros."""
+    acc = torch.zeros((data.shape[0], qmat.shape[1]), dtype=qmat.dtype,
+                      device=qmat.device)
+    for sl in range(data.shape[1]):
+        acc = acc + data[:, sl, None] * qmat.index_select(0, cols[:, sl])
+    return acc
+
+
+def tile_scores(data: torch.Tensor, cols: torch.Tensor, qmat: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row-sparse tile (data float32 [R, L], cols int32 [R, L] in
+    [0, V)) x query block (float32 [V, Q]) -> similarities float32
+    [R, Q]: ``out[r, q] = sum_l data[r, l] * qmat[cols[r, l], q]``,
+    summed in l order, bit-equal to :func:`tile_scores_plain` for finite
+    ``qmat``. Dead slots carry data 0. ``out`` (contiguous float32
+    [R, Q] on the same device) receives the scores in place: the tiled
+    search reuses one buffer for every tile."""
+    name = "tile_scores"
+    extra = () if out is None else (out,)
+    if _on_cpu(name, data, cols, qmat, *extra):
+        scores = tile_scores_plain(data, cols, qmat)
+        return scores if out is None else out.copy_(scores)
+    _check(name, "data", data, {torch.float32}, 2)
+    _check(name, "cols", cols, {torch.int32}, 2)
+    _check(name, "qmat", qmat, {torch.float32}, 2)
+    rows, length = data.shape
+    nq = qmat.shape[1]
+    if cols.shape != data.shape:
+        raise ValueError(f"{name}: cols {tuple(cols.shape)} vs data "
+                         f"{tuple(data.shape)}")
+    if rows * length >= (1 << 31) or qmat.numel() >= (1 << 31):
+        raise ValueError(f"{name}: {rows} x {length} slots or a "
+                         f"{tuple(qmat.shape)} query block overflows int32 "
+                         f"indices (>= 2^31)")
+    if out is None:
+        out = torch.empty((rows, nq), dtype=torch.float32, device=data.device)
+    else:
+        _check(name, "out", out, {torch.float32}, 2)
+        if out.shape != (rows, nq):
+            raise ValueError(f"{name}: out {tuple(out.shape)}, expected "
+                             f"{(rows, nq)}")
+    if rows == 0 or nq == 0:
+        return out
+    tile_scores_launch(data, cols, qmat, out)
+    return out
+
+
+def tile_scores_launch(data: torch.Tensor, cols: torch.Tensor,
+                       qmat: torch.Tensor, out: torch.Tensor) -> None:
+    """:func:`tile_scores`'s kernel launch alone, into ``out``. CUDA
+    tensors that :func:`tile_scores` has checked; lets a benchmark time
+    the kernel without the output allocation."""
+    rows, length = data.shape
+    _launch("tile_scores", load().tfidf_tile_scores, data.device,
+            _ptr(data), _ptr(cols), _ptr(qmat), _ptr(out), rows, length,
+            qmat.shape[1])

@@ -1,5 +1,6 @@
-"""Row-sparse term-document scoring, main-path half (port of
-``tfidf_tpu/ops/sparse.py`` :34-316 and ``sparse_forward`` :519).
+"""Row-sparse term-document scoring (port of ``tfidf_tpu/ops/sparse.py``
+:34-316, ``to_bcoo`` :336, the tiled retrieval half :374-509 and
+``sparse_forward`` :519).
 
 Per document, a padded list of (term id, count) pairs is derived by sort
 + run-length encoding — the [D, V] matrix is never built. DF is a
@@ -8,10 +9,15 @@ gather from the [V] IDF table (the JAX package's off-TPU lowerings,
 ``sparse.py:137-181``). The top-k branch of :func:`sparse_forward` goes
 through :func:`score_topk`, which on a CUDA tensor launches the fused
 score+top-k kernel (``ops.kernels.fused_score_topk``).
+
+Retrieval scores a row-sparse face against a [V, Q] query block with the
+tile-scores kernel (``ops.kernels.tile_scores``) in fixed doc tiles, and
+keeps a running [Q, k] top-k across them (:func:`score_topk_tiled`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,10 +40,27 @@ def sorted_term_counts(token_ids: torch.Tensor, lengths: torch.Tensor
     sorts to the row tail as ``INT32_MAX``.
     """
     token_ids = token_ids.to(torch.int32)
+    return _sorted_counts_core(token_ids,
+                               valid_mask(lengths, token_ids.shape[1]),
+                               lengths.to(torch.int32))
+
+
+def sorted_term_counts_masked(token_ids: torch.Tensor, valid: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`sorted_term_counts` for non-contiguous validity (``valid``
+    [D, L] bool): the same triple; after the sort the live entries fill
+    each row's prefix wherever the mask's holes were."""
+    return _sorted_counts_core(token_ids.to(torch.int32), valid,
+                               valid.sum(dim=1, dtype=torch.int32))
+
+
+def _sorted_counts_core(token_ids, valid, lengths):
     d, length = token_ids.shape
-    live = valid_mask(lengths, length)
     sorted_ids = torch.sort(
-        torch.where(live, token_ids, INT32_MAX), dim=1).values
+        torch.where(valid, token_ids, INT32_MAX), dim=1).values
+    # Post-sort validity: sentinels sort to the tail, so the first
+    # lengths[d] (= live count) slots are exactly the live ones.
+    live = valid_mask(lengths, length)
     prev = torch.cat([torch.full((d, 1), -1, dtype=torch.int32,
                                  device=token_ids.device),
                       sorted_ids[:, :-1]], dim=1)
@@ -51,7 +74,7 @@ def sorted_term_counts(token_ids: torch.Tensor, lengths: torch.Tensor
     next_head = torch.cat([suffix_min[:, 1:],
                            torch.full((d, 1), length, dtype=torch.int32,
                                       device=token_ids.device)], dim=1)
-    counts = torch.minimum(next_head, lengths.to(torch.int32)[:, None]) - pos
+    counts = torch.minimum(next_head, lengths[:, None]) - pos
     return sorted_ids, counts.to(torch.int32), head
 
 
@@ -123,3 +146,139 @@ def sparse_forward(token_ids: torch.Tensor, lengths: torch.Tensor, num_docs: int
         return df, vals, out_ids
     scores = sparse_scores(ids, counts, head, lengths, idf)
     return df, ids, counts, head, scores
+
+
+def to_bcoo(ids: torch.Tensor, counts: torch.Tensor, head: torch.Tensor,
+            vocab_size: int) -> torch.Tensor:
+    """Row-sparse counts as a ``torch.sparse_coo_tensor`` [D, V] (the
+    JAX package's BCOO export, for interop; never on the search path).
+    Dead slots become explicit zeros at column 0, uncoalesced, as in the
+    BCOO form."""
+    d, length = ids.shape
+    rows = torch.arange(d, device=ids.device).repeat_interleave(length)
+    cols = torch.where(head, ids, 0).reshape(-1).to(torch.int64)
+    data = torch.where(head, counts, 0).reshape(-1)
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), data,
+                                   size=(d, vocab_size),
+                                   check_invariants=False)
+
+
+# --- tiled retrieval scoring -------------------------------------------
+#
+# The doc axis is scored in fixed tiles against the whole [V, Q] query
+# block, and a running [Q, k] top-k folds across them. The result equals
+# one untiled score + top-k bit for bit, ties included:
+# * a row never splits across tiles, so its score is the same sum over
+#   the same L slots;
+# * tiles run in ascending row order and every merge puts the carry
+#   (lower rows) BEFORE the tile's candidates, and the selections are
+#   stable, so the lower position is the lower global row;
+# * each tile keeps min(k, tile) rows, which holds every row that can
+#   reach the global top-k;
+# * the ragged last tile is padded to the full width with rows that
+#   score 0 (or the _DEAD sentinel when masked) at the highest global
+#   positions, as the JAX package pads it.
+
+_TILE_DEFAULT = 4096
+
+
+def score_method(explicit: Optional[str] = None) -> str:
+    """Validate the ``TFIDF_TPU_SCORE`` knob (``"xla"`` or ``"pallas"``).
+    The JAX package picks its BCOO dot or its Pallas kernel by it; the
+    port has no BCOO lowering, so both values run the tile-scores kernel
+    (as both run the fused score+top-k kernel in batch scoring)."""
+    method = explicit if explicit is not None else (
+        os.environ.get("TFIDF_TPU_SCORE") or "xla")
+    if method not in ("xla", "pallas"):
+        raise ValueError(f"unknown TFIDF_TPU_SCORE method {method!r}")
+    return method
+
+
+def score_tiling(explicit: Optional[str] = None) -> bool:
+    """The tiled-scoring knob ``TFIDF_TPU_SCORE_TILING`` (default on),
+    read at call time. ``off`` takes the untiled path, which the
+    retriever splits into 64-query blocks as the JAX package does."""
+    raw = (explicit if explicit is not None
+           else os.environ.get("TFIDF_TPU_SCORE_TILING", "on"))
+    val = str(raw).strip().lower()
+    if val in ("on", "1", "true", "yes", ""):
+        return True
+    if val in ("off", "0", "false", "no"):
+        return False
+    raise ValueError(
+        f"unknown TFIDF_TPU_SCORE_TILING value {raw!r} (on|off)")
+
+
+def score_tile_rows(d: int, explicit: Optional[int] = None) -> int:
+    """Rows per doc tile: ``TFIDF_TPU_QUERY_BLOCK`` (default 4,096),
+    clamped to [1, d]."""
+    if explicit is None:
+        raw = os.environ.get("TFIDF_TPU_QUERY_BLOCK", "")
+        explicit = int(raw) if raw.strip() else _TILE_DEFAULT
+    return max(1, min(int(explicit), max(1, int(d))))
+
+
+def _tile_scores(data_t: torch.Tensor, cols_t: torch.Tensor,
+                 qmat: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """One tile's [rows, Q] similarities into ``out``: the tile-scores
+    kernel on CUDA, its plain version on the CPU."""
+    from tfidf_tpu_torch.ops.kernels import tile_scores
+    return tile_scores(data_t, cols_t, qmat, out=out)
+
+
+def score_topk_tiled_trace(data: torch.Tensor, cols: torch.Tensor,
+                           live: Optional[torch.Tensor], qmat: torch.Tensor,
+                           *, k: int, tile: int, masked: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tiled score+top-k loop (see the section comment): [D, L] face
+    x [V, Q] queries -> ([Q, k'], int32 [Q, k']), k' = min(k, D), in
+    (score desc, row asc) order. ``live`` ([D] bool, ``masked=True``)
+    scores dead rows ``_DEAD`` before selection. One [tile, Q] score
+    buffer serves every tile; the loop issues its work without waiting
+    on the device."""
+    from tfidf_tpu_torch.ops.topk import _DEAD, merge_topk, topk_rows
+
+    d = data.shape[0]
+    k = min(k, d)
+    tile = max(1, min(tile, d))
+    kt = min(k, tile)
+    q = qmat.shape[1]
+    dev = qmat.device
+    vals = torch.full((q, k), -float("inf"), dtype=qmat.dtype, device=dev)
+    ids = torch.zeros((q, k), dtype=torch.int32, device=dev)
+    buf = torch.empty((tile, q), dtype=torch.float32, device=dev)
+    for base in range(0, d, tile):
+        n = min(tile, d - base)
+        if n < tile:
+            buf[n:].zero_()  # the ragged last tile's zero padding rows
+        _tile_scores(data[base:base + n], cols[base:base + n], qmat,
+                     buf[:n])
+        sims = buf.t()                                    # [Q, tile]
+        if masked:
+            live_t = live[base:base + n]
+            if n < tile:
+                live_t = torch.cat([live_t, live_t.new_zeros(tile - n)])
+            sims = torch.where(live_t[None, :], sims, _DEAD)
+        v, i = topk_rows(sims, kt)
+        # Carry first: its rows precede this tile's, so the merge's
+        # earlier-position tie-break is the lower global row.
+        vals, ids = merge_topk(torch.cat([vals, v], dim=1),
+                               torch.cat([ids, i + base], dim=1), k)
+    return vals, ids
+
+
+def score_topk_tiled(data: torch.Tensor, cols: torch.Tensor,
+                     live: Optional[torch.Tensor], qmat: torch.Tensor,
+                     k: int, tile: Optional[int] = None,
+                     method: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tiled score+top-k over a row-sparse face: resolves the tile width
+    (:func:`score_tile_rows`) and validates the score knob
+    (:func:`score_method`) at call time, then runs
+    :func:`score_topk_tiled_trace`."""
+    score_method(method)
+    d = data.shape[0]
+    return score_topk_tiled_trace(data.contiguous(), cols.contiguous(), live,
+                                  qmat.contiguous(), k=min(int(k), d),
+                                  tile=score_tile_rows(d, tile),
+                                  masked=live is not None)
