@@ -10,7 +10,13 @@ Phases, each printed as one JSON line:
 2. ``kernel_cases``: every kernel at the main path's shapes, on the card,
    against its plain PyTorch version on the same inputs (float32,
    bfloat16 and float16 scores): ints, ids and words exact, scores
-   bit-equal. The ragged-rebuild (B4) and tokenize+hash (B5) cases run
+   bit-equal. B1 also runs k = 1 and 64, a tie-heavy batch (one idf for
+   every term; rows whose head slots all score the same, rows with
+   exactly k, k - 1 or 5 head slots, rows with none) and rows of 16,384
+   slots (Zipf rows, and uniform rows with more head slots than a warp's
+   shared-memory list, which take the rescoring path); its yardstick is
+   ``torch.topk`` of a precomputed ``sparse_scores`` block (the selection
+   half only). The ragged-rebuild (B4) and tokenize+hash (B5) cases run
    one 32,768-doc chunk of the Zipf corpus at L = 256: B4 on uint16 and
    int32 flat streams at granules 1, 8, 16 and 32, B5 on the uint8 slab
    and its int32 upcast, with and without ``truncate_at``, plus a
@@ -65,9 +71,11 @@ Phases, each printed as one JSON line:
    qps, the host time of ``fill_query_matrix`` and a device profile of
    one warm Q = 64 search.
 10. ``kernel_cases_b6``: B6 on real tiles of that index (4,096 rows,
-   L = 256, V = 2^16) at Q = 64 and 256 on the tfidf and bm25 faces,
-   Q = 1, 3 and 33, a ragged tile and all-dead rows, each bit-equal to
-   the plain version; its times against ``torch.sparse.mm`` of the tile
+   L = 256, V = 2^16) at Q = 1, 3, 16, 17, 32, 33, 64, 100, 128, 256,
+   257 and 512 on the tfidf face and 64 and 256 on bm25, a ragged tile,
+   all-dead rows and a row whose every slot is live, each bit-equal to
+   the plain version over the whole output; its times (tfidf Q 64, 256,
+   1 and 512, bm25 Q 64 and 256) against ``torch.sparse.mm`` of the tile
    as a CSR matrix (built outside the timed span).
 
 Then the ``kernels`` summary line, the card's name and power limit as
@@ -109,6 +117,9 @@ RETR_TILE = 4096          # the default doc tile (TFIDF_TPU_QUERY_BLOCK)
 RETR_K = 10
 RETR_QUERIES = 256
 RETR_SMALL = 8192         # path_retrieval: the index built on both devices
+# kernel_cases_b6: Q held bit-equal on the tfidf face, and Q timed per face
+B6_CHECKED_Q = (1, 3, 16, 17, 32, 33, 64, 100, 128, 256, 257, 512)
+B6_TIMED_Q = {"tfidf": (64, RETR_QUERIES, 1, 512), "bm25": (64, RETR_QUERIES)}
 # FP32 fused multiply-adds per second: the data sheet's 67 TFLOP/s of
 # float32 outside the tensor cores, two operations per FMA.
 FP32_FMA_PER_S = 67e12 / 2
@@ -346,7 +357,8 @@ def env_phase(_build):
 def kernel_phase(K):
     """Each kernel against its plain version at the main path's shapes."""
     from tfidf_tpu_torch.ops.scoring import idf_from_df
-    from tfidf_tpu_torch.ops.sparse import sorted_term_counts, sparse_df
+    from tfidf_tpu_torch.ops.sparse import (sorted_term_counts, sparse_df,
+                                            sparse_scores)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -361,26 +373,61 @@ def kernel_phase(K):
     idf = idf_from_df(df, N_DOCS, torch.float32)
     cases = []
 
-    def b1_case(label, ids, counts, head, lens_d, idf):
-        kv, kt = K.fused_score_topk(ids, counts, head, lens_d, idf, k=TOPK)
-        pv, pt = K.fused_score_topk_plain(ids, counts, head, lens_d, idf, k=TOPK)
+    def b1_case(label, ids, counts, head, lens_d, idf, k=TOPK):
+        kv, kt = K.fused_score_topk(ids, counts, head, lens_d, idf, k=k)
+        pv, pt = K.fused_score_topk_plain(ids, counts, head, lens_d, idf, k=k)
         torch.cuda.synchronize()
         check(torch.equal(kt, pt), f"B1 {label}: ids differ from plain")
         check(same_bits(kv, pv), f"B1 {label}: scores not bit-equal to plain")
         err = (kv.float() - pv.float()).abs().max().item()
+        n_head = head.sum(dim=1)
         cases.append({"kernel": "fused_score_topk", "case": label,
-                      "shape": list(ids.shape), "k": TOPK, "ids_equal": True,
-                      "scores_bit_equal": True, "max_abs_err": err})
+                      "shape": list(ids.shape), "k": k, "ids_equal": True,
+                      "scores_bit_equal": True, "max_abs_err": err,
+                      "head_slots_per_row": {
+                          "max": int(n_head.max()),
+                          "rows_over_32": int((n_head > 32).sum()),
+                          "rows_none": int((n_head == 0).sum())}})
         return kv, kt, err
 
     vals, tids, err = b1_case("float32", ids, counts, head, lens_d, idf)
     b1_case("bfloat16", ids, counts, head, lens_d, idf.to(torch.bfloat16))
     b1_case("float16", ids, counts, head, lens_d, idf.to(torch.float16))
-    # Rows too long for shared memory take the kernel's rescoring path.
+    for k in (1, 64):
+        b1_case(f"float32_k{k}", ids, counts, head, lens_d, idf, k=k)
+    b1_case("bfloat16_k64", ids, counts, head, lens_d,
+            idf.to(torch.bfloat16), k=64)
+    # Ties: one idf for every term, and rows whose head slots all score
+    # the same (every term twice), hold exactly k or k - 1 or 5 terms, or
+    # none (length 0); the other rows keep their Zipf tokens.
+    tt = toks_d[:4096].clone()
+    tl = lens_d[:4096].clone()
+    kinds = torch.arange(4096, device=dev) % 6
+    pairs = torch.arange(DOC_LEN, device=dev, dtype=torch.int32) // 2
+    for kind, n_terms in ((0, DOC_LEN // 2), (1, TOPK), (2, TOPK - 1),
+                          (3, 5)):
+        sel = kinds == kind
+        tt[sel] = (pairs % n_terms)[None, :]
+        tl[sel] = DOC_LEN if kind == 0 else 2 * n_terms
+    tl[kinds == 4] = 0
+    ti, tc, th = sorted_term_counts(tt, tl)
+    flat_idf = torch.full((SPARSE_VOCAB,), 1.5, device=dev)
+    for k in (1, TOPK, 64):
+        b1_case(f"tie_heavy_k{k}", ti, tc, th, tl, flat_idf, k=k)
+    b1_case("tie_heavy_float16", ti, tc, th, tl, flat_idf.half())
+    # Rows too long for shared memory. Zipf rows mostly fit the warp's
+    # list (2,048 slots); uniform ids over 2^16 give more head slots than
+    # that, so those rows take the kernel's rescoring path.
     ltoks, llens = zipf_tokens(rng, 64, 16384, SPARSE_VOCAB)
     lt, lc, lh = sorted_term_counts(torch.from_numpy(ltoks).to(dev),
                                     torch.from_numpy(llens).to(dev))
     b1_case("long_rows", lt, lc, lh, torch.from_numpy(llens).to(dev), idf)
+    utoks = torch.from_numpy(rng.integers(0, SPARSE_VOCAB, (64, 16384))
+                             .astype(np.int32)).to(dev)
+    ulens = torch.full((64,), 16384, dtype=torch.int32, device=dev)
+    ulens[::2] = 3000
+    ut, uc, uh = sorted_term_counts(utoks, ulens)
+    b1_case("long_rows_uniform", ut, uc, uh, ulens, idf)
     d, length = ids.shape
     # What this batch needs: lengths, head at every slot (it alone says
     # which slots score), ids and counts at head slots only, idf at the
@@ -389,11 +436,24 @@ def kernel_phase(K):
     n_idf = int(torch.unique(ids[head]).numel())
     b1_bytes = (d * 4 + d * length + n_head * (4 + 4) + n_idf * 4
                 + d * TOPK * (4 + 4))
+    block = sparse_scores(ids, counts, head, lens_d, idf)
+    no_head = torch.zeros_like(head)
+    # Where B1's time goes: fewer or more selection rounds, and the floor
+    # of a batch with no head slot (reads head and lengths, writes picks).
+    b1_parts = {f"kernel_ms_k{k}": device_span_ms(
+        lambda k=k: K.fused_score_topk(ids, counts, head, lens_d, idf, k=k))
+        for k in (1, 64)}
+    b1_parts["kernel_ms_no_head_slots"] = device_span_ms(
+        lambda: K.fused_score_topk(ids, counts, no_head, lens_d, idf, k=TOPK))
     summary["fused_score_topk"] = {
+        **b1_parts, "rows_over_32_head_slots": int((head.sum(1) > 32).sum()),
         **kernel_times(
             lambda: K.fused_score_topk(ids, counts, head, lens_d, idf, k=TOPK),
             lambda: K.fused_score_topk_plain(ids, counts, head, lens_d, idf,
                                              k=TOPK)),
+        "yardstick_ms": device_span_ms(lambda: torch.topk(block, TOPK, dim=1)),
+        "yardstick_call": "torch.topk(sparse_scores block [D, L], 16, dim=1): "
+                          "selection half only, not the same function",
         "bound_ms": bound_ms(b1_bytes), "kernel_bound_ms": bound_ms(b1_bytes),
         "max_abs_err": err, "shape": {"D": d, "L": length, "k": TOPK,
                                       "V": SPARSE_VOCAB,
@@ -1016,6 +1076,10 @@ def b6_kernel_cases(K, R, r, cfg, queries, summary):
     faces = {"tfidf": r._scorer_face(parse_scorer("tfidf")),
              "bm25": r._scorer_face(parse_scorer("bm25"))}
 
+    # Q 512 needs more queries than the searches use.
+    queries = queries + retrieval_queries(np.random.default_rng(SEED + 4),
+                                          max(B6_CHECKED_Q) - len(queries))
+
     def qmat_for(kind, q):
         mode = "counts" if kind == "bm25" else "cosine"
         return torch.from_numpy(R.query_matrix(
@@ -1036,13 +1100,14 @@ def b6_kernel_cases(K, R, r, cfg, queries, summary):
     tiles = {}
     for kind, (data, cols) in faces.items():
         d_t, c_t = data[:RETR_TILE], cols[:RETR_TILE]
-        for q in (64, RETR_QUERIES):
+        for q in B6_TIMED_Q[kind]:
             qm = qmat_for(kind, q)
             tiles[kind, q] = (d_t, c_t, qm)
             case(f"{kind}_q{q}", d_t, c_t, qm)
     d_t, c_t = faces["tfidf"][0][:RETR_TILE], faces["tfidf"][1][:RETR_TILE]
-    for q in (1, 3, 33):
-        case(f"tfidf_q{q}", d_t, c_t, qmat_for("tfidf", q))
+    for q in B6_CHECKED_Q:
+        if ("tfidf", q) not in tiles:
+            case(f"tfidf_q{q}", d_t, c_t, qmat_for("tfidf", q))
     q64 = tiles["tfidf", 64][2]
     ragged = 3001
     case(f"ragged_{ragged}_rows_q64", faces["tfidf"][0][:ragged].contiguous(),
@@ -1050,6 +1115,10 @@ def b6_kernel_cases(K, R, r, cfg, queries, summary):
     dead = d_t.clone()
     dead[:512] = 0
     case("dead_rows_0_512_q64", dead, c_t, q64, dead_rows=512)
+    full = d_t.clone()
+    full[7] = 0.5  # row 7: every one of its L slots live
+    for q in (64, RETR_QUERIES):
+        case(f"all_live_row_q{q}", full, c_t, tiles["tfidf", q][2])
     emit({"phase": "kernel_cases_b6", "cases": cases})
 
     def timed(kind, q):
@@ -1084,9 +1153,8 @@ def b6_kernel_cases(K, R, r, cfg, queries, summary):
     main["library_call"] = ("torch.sparse.mm(tile as CSR [4096, V], qmat) "
                             "(CSR built outside the timed span)")
     main["other_shapes"] = {f"{kind}_q{q}": timed(kind, q)
-                            for kind, q in (("tfidf", RETR_QUERIES),
-                                            ("bm25", 64),
-                                            ("bm25", RETR_QUERIES))}
+                            for kind, qs in B6_TIMED_Q.items() for q in qs
+                            if (kind, q) != ("tfidf", 64)}
     summary["tile_scores"] = main
 
 
@@ -1185,6 +1253,9 @@ def main() -> int:
                      **{key: s[key] for key in (
                          "library_call", "bytes_bound_ms",
                          "operations_bound_ms", "library_max_abs_err",
+                         "yardstick_ms", "yardstick_call", "kernel_ms_k1",
+                         "kernel_ms_k64", "kernel_ms_no_head_slots",
+                         "rows_over_32_head_slots",
                          "other_shapes") if key in s}})
     emit({"kernels": rows})
     print(smi, flush=True)

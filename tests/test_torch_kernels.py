@@ -445,7 +445,7 @@ class TestTileScores:
     ones, where the two sum the L slots in possibly different roundings.
     The CUDA kernel equals the plain version bit for bit (chip_smoke.py)."""
 
-    @pytest.mark.parametrize("q", [1, 3, 33, 64])
+    @pytest.mark.parametrize("q", [1, 3, 33, 64, 100, 257, 512])
     @pytest.mark.parametrize("rows,length,vocab", [(37, 8, 64), (13, 16, 512)])
     def test_quantized_exact(self, q, rows, length, vocab):
         data, cols, qmat = _tile_case(q + rows, rows, length, vocab, q,
@@ -459,7 +459,7 @@ class TestTileScores:
                                       want.view(np.uint32))
         assert (got.numpy()[[0, rows - 1]] == 0).all()  # all-dead rows
 
-    @pytest.mark.parametrize("q", [1, 3, 33, 64])
+    @pytest.mark.parametrize("q", [1, 3, 33, 64, 100, 257, 512])
     def test_continuous_rtol(self, q):
         data, cols, qmat = _tile_case(100 + q, 29, 12, 300, q, quantize=False,
                                       dead_rows=(5,))

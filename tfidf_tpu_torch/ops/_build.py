@@ -68,8 +68,11 @@ SIGNATURES = {
     # vocab_size, truncate_at, stream
     "tfidf_tokenize_hash": [_P, _I, _LL, _P, _P, _P, _I, _I,
                             ctypes.c_uint64, _I, _I, _P],
-    # data, cols, qmat, out, rows, L, Q, stream
-    "tfidf_tile_scores": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # data, cols, qmat, out, rows, L, Q, then the plan (ops/kernels.py
+    # tile_scores_plan): g_log2, v, nv, passes, sv, warps, cap, blocks;
+    # stream
+    "tfidf_tile_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P],
 }
 
 

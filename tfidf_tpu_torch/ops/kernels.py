@@ -99,6 +99,20 @@ def fused_score_topk_plain(ids, counts, head, lengths, idf, *, k: int):
                        ids, head, k)
 
 
+def topk_order_key(scores: torch.Tensor) -> torch.Tensor:
+    """The fused kernel's selection order as integers (csrc/score_topk.cu
+    ``order_key``, line for line): int64 values in [0, 2^32) such that a
+    larger key comes earlier in ``torch.sort(descending=True,
+    stable=True)``: NaN first, -0.0 equal to +0.0, the float bits' sign
+    flipped (positive) or inverted (negative). Scores of any float dtype;
+    bfloat16 and float16 widen to float32 exactly."""
+    s = scores.to(torch.float32)
+    s = torch.where(s == 0, torch.zeros((), dtype=s.dtype, device=s.device), s)
+    b = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b ^ 0x80000000)
+    return torch.where(torch.isnan(s), 0xFFFFFFFF, key)
+
+
 def fused_score_topk(ids: torch.Tensor, counts: torch.Tensor,
                      head: torch.Tensor, lengths: torch.Tensor,
                      idf: torch.Tensor, *, k: int
@@ -419,12 +433,82 @@ def tile_scores(data: torch.Tensor, cols: torch.Tensor, qmat: torch.Tensor,
     return out
 
 
+_SMEM_DEFAULT = 48 * 1024   # dynamic shared memory without the opt-in
+_TILE_WARPS = 4             # warps per block when the grid is large
+_TILE_MIN_BLOCKS = 2 * 132  # two blocks per H100 SM
+_TILE_MIN_WARPS = 4 * 132   # four warps per H100 SM
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two that divides every tensor's address."""
+    return min(t.data_ptr() & -t.data_ptr() for t in tensors)
+
+
+def tile_scores_plan(rows: int, length: int, q: int, *,
+                     slot_align: int = 16, col_align: int = 16) -> Dict[str, int]:
+    """The launch plan of the tile-scores kernel (csrc/tile_scores.cu)
+    for a [rows, length] tile against Q query columns.
+
+    * ``v``: floats per gathered vector (4, 2 or 1 by Q's alignment and
+      ``col_align``, the byte alignment of qmat and out);
+    * ``g``: lanes per row, a power of two covering Q / v (at most 32),
+      and wide enough that a small tile still fills four warps per SM;
+      a warp holds ``rows_per_warp = 32 / g`` rows;
+    * ``nv``: vectors per lane per pass (a power of two, ``v * nv <= 8``
+      accumulators); ``passes``: column passes, so every column is owned
+      by exactly one (pass, vector, lane): column
+      ``((pass * nv + i) * g + sub) * v + e``;
+    * ``sv``: slots of data and cols a lane loads at once (4 = one
+      16-byte load each, when ``length % 4 == 0`` and the rows are
+      16-byte aligned, ``slot_align``), so a group reads ``g * sv`` slots
+      per step;
+    * ``warps`` per block (4, or 1 when fewer than two blocks per SM
+      would result), ``blocks``, ``cap`` (list slots per row: the whole
+      row when it fits the 48 KB default, else a window of it) and
+      ``smem_bytes`` (8 bytes per list slot).
+    Row ``(block * warps + warp) * rows_per_warp + lane // g``.
+    """
+    rows, length, q = int(rows), int(length), int(q)
+    if rows < 1 or q < 1 or length < 0:
+        raise ValueError(f"tile_scores_plan: rows {rows}, length {length}, "
+                         f"q {q}")
+    v = next(w for w in (4, 2, 1) if q % w == 0 and col_align % (4 * w) == 0)
+    # Enough lanes per row to cover Q / v, and enough rows' groups that
+    # the tile fills _TILE_MIN_WARPS warps (idle lanes still share the
+    # row's loads).
+    g = min(32, max(_pow2_at_least(-(-q // v)),
+                    _pow2_at_least(-(-_TILE_MIN_WARPS * 32 // rows))))
+    rpw = 32 // g
+    chunks = -(-q // (g * v))
+    nv = min(_pow2_at_least(chunks), 8 // v)
+    passes = -(-chunks // nv)
+    sv = 4 if length % 4 == 0 and slot_align % 16 == 0 else 1
+    step = g * sv
+    warps = _TILE_WARPS if -(-rows // (_TILE_WARPS * rpw)) >= _TILE_MIN_BLOCKS \
+        else 1
+    fit = (_SMEM_DEFAULT // (warps * rpw * 8)) // step * step
+    cap = max(step, min(-(-max(length, 1) // step) * step, fit))
+    return {"g": g, "rows_per_warp": rpw, "v": v, "nv": nv,
+            "passes": passes, "sv": sv, "warps": warps,
+            "blocks": -(-rows // (warps * rpw)), "cap": cap,
+            "smem_bytes": warps * rpw * cap * 8}
+
+
 def tile_scores_launch(data: torch.Tensor, cols: torch.Tensor,
                        qmat: torch.Tensor, out: torch.Tensor) -> None:
-    """:func:`tile_scores`'s kernel launch alone, into ``out``. CUDA
-    tensors that :func:`tile_scores` has checked; lets a benchmark time
-    the kernel without the output allocation."""
+    """:func:`tile_scores`'s kernel launch alone, into ``out``, with the
+    plan of :func:`tile_scores_plan`. CUDA tensors that
+    :func:`tile_scores` has checked; lets a benchmark time the kernel
+    without the output allocation."""
     rows, length = data.shape
+    q = qmat.shape[1]
+    p = tile_scores_plan(rows, length, q, slot_align=_alignment(data, cols),
+                         col_align=_alignment(qmat, out))
     _launch("tile_scores", load().tfidf_tile_scores, data.device,
-            _ptr(data), _ptr(cols), _ptr(qmat), _ptr(out), rows, length,
-            qmat.shape[1])
+            _ptr(data), _ptr(cols), _ptr(qmat), _ptr(out), rows, length, q,
+            p["g"].bit_length() - 1, p["v"], p["nv"], p["passes"], p["sv"],
+            p["warps"], p["cap"], p["blocks"])
