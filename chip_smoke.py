@@ -18,10 +18,17 @@ Phases, each printed as one JSON line:
    ``torch.topk`` of a precomputed ``sparse_scores`` block (the selection
    half only). The ragged-rebuild (B4) and tokenize+hash (B5) cases run
    one 32,768-doc chunk of the Zipf corpus at L = 256: B4 on uint16 and
-   int32 flat streams at granules 1, 8, 16 and 32, B5 on the uint8 slab
-   and its int32 upcast, with and without ``truncate_at``, plus a
-   multi-byte UTF-8 slab with a non-zero seed; both equal their plain
-   versions on the whole [D, L], and B5 equals the host packer's ids.
+   int32 flat streams at granules 1, 2, 4, 8, 16 and 32, and at G 4 and
+   16 with L = 250, rows of length 0 and below 0, D = 1 and a stream at
+   an odd address (the scalar path); B5 on the uint8 slab and its int32
+   upcast, with and without ``truncate_at``, a multi-byte UTF-8 slab
+   with non-zero seeds, vocabularies 65,521 and 3, a slab that ends
+   inside a 35-byte token (its length not a multiple of 16) and the slab
+   at an odd address (the byte-at-a-time walk). Both equal their plain
+   versions on the whole [D, L], and B5 equals the host packer's ids in
+   every case. Beside B4, the torch chain of ``granule_offsets`` that
+   its offset scan replaced and the rebuild launch alone; beside B5,
+   ``token_starts``, the bytes wire's other device work.
    Times are medians of 20 calls after a warm-up, each the device span
    of one call: CUDA events around it while a sleep kernel holds the
    stream, so the host's launch latency is not counted. ``ms`` is one
@@ -542,7 +549,8 @@ def ingest_kernel_cases(K, summary, cases):
     the Zipf corpus at L = 256, G = 16 (the wire's default granule)."""
     import tfidf_tpu_torch as T
     from tfidf_tpu_torch.ingest import flatten_aligned
-    from tfidf_tpu_torch.ops.device_tokenize import token_starts
+    from tfidf_tpu_torch.ops.device_tokenize import (aligned_byte_lengths,
+                                                     token_starts)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 2)
@@ -555,28 +563,57 @@ def ingest_kernel_cases(K, summary, cases):
     lens_d = torch.from_numpy(batch.lengths).to(dev)
 
     # --- B4: ragged rebuild -------------------------------------------
+    live = torch.arange(DOC_LEN, device=dev)[None, :] < lens_d[:, None]
+
+    def b4_case(label, flat_d, lens, length, align, packed=None):
+        """The kernel equals its plain version over the whole [D, L]
+        (padding slots included) and, given the packed batch, its live
+        ids."""
+        got = K.ragged_rebuild(flat_d, lens, length=length, align=align)
+        want = K.ragged_rebuild_plain(flat_d, lens, length=length, align=align)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"B4 {label}: differs from plain")
+        if packed is not None:
+            check(torch.equal(torch.where(live, got, 0).cpu(), packed),
+                  f"B4 {label}: live ids differ from the packed batch")
+        p = K.ragged_rebuild_plan(got.shape[0], length, align,
+                                  itemsize=flat_d.element_size(),
+                                  flat_align=K._alignment(flat_d),
+                                  out_align=K._alignment(got))
+        cases.append({"kernel": "ragged_rebuild", "case": label,
+                      "shape": list(got.shape), "flat_ids": flat_d.numel(),
+                      "group": p["group"], "whole_output_equal": True,
+                      "max_abs_err": 0})
+
+    packed_ids = torch.from_numpy(batch.token_ids)
     flats = {}
     for dtype in (np.uint16, np.int32):
-        for align in (1, 8, 16, 32):
+        for align in (1, 2, 4, 8, 16, 32):
             flat, total = flatten_aligned(batch.token_ids, batch.lengths,
                                           align, dtype=dtype)
             flat_d = torch.from_numpy(flat).to(dev)
             flats[dtype, align] = (flat_d, total)
-            got = K.ragged_rebuild(flat_d, lens_d, length=DOC_LEN, align=align)
-            want = K.ragged_rebuild_plain(flat_d, lens_d, length=DOC_LEN,
-                                          align=align)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"B4 {np.dtype(dtype).name} G={align}: differs from plain")
-            live = torch.arange(DOC_LEN, device=dev)[None, :] < lens_d[:, None]
-            check(torch.equal(torch.where(live, got, 0).cpu(),
-                              torch.from_numpy(batch.token_ids)),
-                  f"B4 {np.dtype(dtype).name} G={align}: live ids differ "
-                  f"from the packed batch")
-            cases.append({"kernel": "ragged_rebuild",
-                          "case": f"{np.dtype(dtype).name}_G{align}",
-                          "shape": [N_DOCS, DOC_LEN], "flat_ids": flat.size,
-                          "whole_output_equal": True, "max_abs_err": 0})
+            b4_case(f"{np.dtype(dtype).name}_G{align}", flat_d, lens_d,
+                    DOC_LEN, align, packed_ids)
+    # The edges: L not a multiple of 4 (the scalar path), rows of length
+    # 0 and below 0, one row, and a stream that is not 8-byte aligned.
+    edge_lens = lens_d.clone()
+    edge_lens[::7] = 0
+    edge_lens[3::7] = -5
+    for dtype in (np.uint16, np.int32):
+        name = np.dtype(dtype).name
+        for align in (4, 16):
+            flat_d, _ = flats[dtype, align]
+            b4_case(f"{name}_G{align}_L250", flat_d, lens_d, 250, align)
+            b4_case(f"{name}_G{align}_zero_and_negative_lengths", flat_d,
+                    edge_lens, DOC_LEN, align)
+            b4_case(f"{name}_G{align}_D1", flat_d, lens_d[:1].contiguous(),
+                    DOC_LEN, align)
+            shifted = torch.empty(flat_d.numel() + 1, dtype=flat_d.dtype,
+                                  device=dev)[1:]
+            shifted.copy_(flat_d)
+            b4_case(f"{name}_G{align}_flat_at_odd_offset", shifted, lens_d,
+                    DOC_LEN, align, packed_ids)
     flat16, total16 = flats[np.uint16, 16]
     flat32, _ = flats[np.int32, 16]
     gran = K.granule_offsets(lens_d, 16)[:, None] \
@@ -587,7 +624,12 @@ def ingest_kernel_cases(K, summary, cases):
                       K.ragged_rebuild(flat32, lens_d, length=DOC_LEN,
                                        align=16)),
           "B4: the library gather differs from the kernel")
-    offg16 = K.granule_offsets(lens_d, 16)
+    plan16 = K.ragged_rebuild_plan(N_DOCS, DOC_LEN, 16, itemsize=2)
+    scratch16 = torch.empty(plan16["scratch"], dtype=torch.int32, device=dev)
+    # the scan's scratch as the offsets of granule_offsets would fill it:
+    # the whole offset per row, zero tile totals
+    given16 = torch.zeros_like(scratch16)
+    given16[:N_DOCS] = K.granule_offsets(lens_d, 16)
     out16 = torch.empty((N_DOCS, DOC_LEN), dtype=torch.int32, device=dev)
     # Read once: the live aligned ids and lengths; written: [D, L] int32.
     b4_bytes = total16 * 2 + N_DOCS * 4 + N_DOCS * DOC_LEN * 4
@@ -597,8 +639,16 @@ def ingest_kernel_cases(K, summary, cases):
             lambda: K.ragged_rebuild_plain(flat16, lens_d, length=DOC_LEN,
                                            align=16),
             lambda: flat32[index],
-            kernel_only=lambda: K.ragged_rebuild_launch(flat16, offg16, out16,
-                                                        align=16)),
+            # every launch of the call: the offset scan, then the rebuild
+            kernel_only=lambda: K.ragged_rebuild_launch(
+                flat16, lens_d, out16, align=16, scratch=scratch16)),
+        # the rebuild launch alone, from the offsets computed beforehand
+        "rebuild_only_ms": device_span_ms(lambda: K.ragged_rebuild_launch(
+            flat16, lens_d, out16, align=16, scratch=given16, scan=False)),
+        # the ragged wire's other device work: the torch chain the offset
+        # scan replaced (the plain version's helper)
+        "granule_offsets_chain_ms": device_span_ms(
+            lambda: K.granule_offsets(lens_d, 16)),
         "library_call": "flat[index] (advanced-indexing gather of the int32 "
                         "flat stream by a precomputed [D, L] int64 index; "
                         "the gather cannot widen uint16 in the same call)",
@@ -607,8 +657,8 @@ def ingest_kernel_cases(K, summary, cases):
         "shape": {"D": N_DOCS, "L": DOC_LEN, "G": 16, "flat": "uint16",
                   "live_aligned_ids": total16}}
     torch.cuda.synchronize()
-    check(torch.equal(out16, K.ragged_rebuild_plain(flat16, lens_d,
-                                                    length=DOC_LEN, align=16)),
+    want16 = K.ragged_rebuild_plain(flat16, lens_d, length=DOC_LEN, align=16)
+    check(torch.equal(out16, want16),
           "B4: the timed launch's output differs from plain")
 
     # --- B5: tokenize + hash --------------------------------------------
@@ -624,25 +674,67 @@ def ingest_kernel_cases(K, summary, cases):
     u_slab_d = torch.from_numpy(u_slab).to(dev)
     u_starts, _, u_lens, _ = token_starts(
         u_slab_d, torch.from_numpy(u_blens).to(dev), length=DOC_LEN, align=16)
-    b5_inputs = {"uint8": (slab_d, starts, t_lens, 0, 0),
-                 "int32_slab": (slab_d.to(torch.int32), starts, t_lens, 0, 0),
-                 "truncate_3": (slab_d, starts, t_lens, 0, 3),
-                 "utf8_seed_truncate_16": (u_slab_d, u_starts, u_lens,
-                                           0xDEADBEEF12345678, 16),
-                 "utf8_seed": (u_slab_d, u_starts, u_lens, 7, 0)}
-    for label, (sl, st, ln, seed, trunc) in b5_inputs.items():
-        got = K.tokenize_hash(sl, st, ln, vocab_size=SPARSE_VOCAB, seed=seed,
+    # A slab that ends inside its last token (a 34-byte one, longer than
+    # two windows), its length not a multiple of 16.
+    c_docs = u_docs[:511] + [("x " * 9 + "y" + "é" * 16 + "zz").encode()]
+    c_slab, c_blens = build_slab(c_docs, 16, 16)
+    c_n = int(aligned_byte_lengths(c_blens, 16)[:-1].sum()) + len(c_docs[-1])
+    check(c_n % 16 != 0 and c_slab[c_n - 1] != 0x20,
+          "B5: the cut slab does not end inside a token")
+    c_slab_d = torch.from_numpy(c_slab[:c_n].copy()).to(dev)
+    c_starts, _, c_lens, _ = token_starts(
+        c_slab_d, torch.from_numpy(c_blens).to(dev), length=DOC_LEN, align=16)
+    # The main slab at an odd address: the byte-at-a-time walk.
+    odd = torch.empty(slab_d.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+    odd.copy_(slab_d)
+
+    def host_ids(docs_, **cfg_kw):
+        """The host packer's ids for ``docs_`` under ``cfg_kw``."""
+        c = T.PipelineConfig(**{**dict(
+            vocab_mode=T.VocabMode.HASHED, vocab_size=SPARSE_VOCAB,
+            max_doc_len=DOC_LEN, doc_chunk=DOC_LEN, topk=TOPK), **cfg_kw})
+        b = T.pack_corpus(T.Corpus(names=[""] * len(docs_), docs=docs_), c,
+                          want_words=False)
+        return torch.from_numpy(b.token_ids)
+
+    main_ids = torch.from_numpy(batch.token_ids)
+    # label: (slab, starts, lengths, vocab, seed, truncate_at, host ids)
+    b5_inputs = {
+        "uint8": (slab_d, starts, t_lens, SPARSE_VOCAB, 0, 0, main_ids),
+        "int32_slab": (slab_d.to(torch.int32), starts, t_lens, SPARSE_VOCAB,
+                       0, 0, main_ids),
+        "truncate_3": (slab_d, starts, t_lens, SPARSE_VOCAB, 0, 3,
+                       host_ids(docs, truncate_tokens_at=3)),
+        "utf8_seed_truncate_16": (
+            u_slab_d, u_starts, u_lens, SPARSE_VOCAB, 0xDEADBEEF12345678, 16,
+            host_ids(u_docs, hash_seed=0xDEADBEEF12345678,
+                     truncate_tokens_at=16)),
+        "utf8_seed": (u_slab_d, u_starts, u_lens, SPARSE_VOCAB, 7, 0,
+                      host_ids(u_docs, hash_seed=7)),
+        "vocab_65521": (slab_d, starts, t_lens, 65521, 0, 0,
+                        host_ids(docs, vocab_size=65521)),
+        "vocab_3": (slab_d, starts, t_lens, 3, 0, 0,
+                    host_ids(docs, vocab_size=3)),
+        "slab_ends_in_token": (c_slab_d, c_starts, c_lens, SPARSE_VOCAB, 0, 0,
+                               host_ids(c_docs)),
+        "slab_at_odd_offset": (odd, starts, t_lens, SPARSE_VOCAB, 0, 0,
+                               main_ids)}
+    for label, (sl, st, ln, vocab, seed, trunc, host) in b5_inputs.items():
+        got = K.tokenize_hash(sl, st, ln, vocab_size=vocab, seed=seed,
                               truncate_at=trunc)
-        want = K.tokenize_hash_plain(sl, st, ln, vocab_size=SPARSE_VOCAB,
+        want = K.tokenize_hash_plain(sl, st, ln, vocab_size=vocab,
                                      seed=seed, truncate_at=trunc)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"B5 {label}: differs from plain")
-        if label == "uint8":
-            check(torch.equal(got.cpu(), torch.from_numpy(batch.token_ids)),
-                  "B5: ids differ from the host packer's")
+        check(torch.equal(got.cpu(), host),
+              f"B5 {label}: ids differ from the host packer's")
+        p = K.tokenize_hash_plan(st.shape[0], st.shape[1],
+                                 slab_align=K._alignment(sl))
         cases.append({"kernel": "tokenize_hash", "case": label,
                       "shape": list(st.shape), "slab_bytes": sl.numel(),
-                      "whole_output_equal": True, "max_abs_err": 0})
+                      "vocab": vocab, "word_windows": p["vec"],
+                      "whole_output_equal": True,
+                      "host_packer_equal": True, "max_abs_err": 0})
     live_tokens = int(batch.lengths.sum())
     hashed_bytes = sum(sum(map(len, d.split()[:DOC_LEN])) for d in docs)
     # Read once: the slab, lengths and the starts of live slots only (a
@@ -660,6 +752,9 @@ def ingest_kernel_cases(K, summary, cases):
                                     vocab_size=SPARSE_VOCAB),
             lambda: K.tokenize_hash_plain(slab_d, starts, t_lens,
                                           vocab_size=SPARSE_VOCAB)),
+        # the bytes wire's other device work: the token starts B5 reads
+        "token_starts_ms": device_span_ms(lambda: token_starts(
+            slab_d, blens_d, length=DOC_LEN, align=16)),
         "library_call": None,
         "bound_ms": max(b5_bytes_ms, b5_ops_ms),
         "bound_by": "bytes" if b5_bytes_ms >= b5_ops_ms else "operations",
@@ -1255,7 +1350,8 @@ def main() -> int:
                          "operations_bound_ms", "library_max_abs_err",
                          "yardstick_ms", "yardstick_call", "kernel_ms_k1",
                          "kernel_ms_k64", "kernel_ms_no_head_slots",
-                         "rows_over_32_head_slots",
+                         "rows_over_32_head_slots", "rebuild_only_ms",
+                         "granule_offsets_chain_ms", "token_starts_ms",
                          "other_shapes") if key in s}})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -1,4 +1,4 @@
-"""What the CPU can check of the redesigned B6 and B1 kernels.
+"""What the CPU can check of the redesigned B6, B1, B4 and B5 kernels.
 
 * B6's launch plan (``ops.kernels.tile_scores_plan``): every (row,
   column) cell of the output is owned by exactly one (block, warp, lane
@@ -11,6 +11,17 @@
   ``finfo.min`` decoded to (0, -1)) equals the JAX package's
   ``fused_score_topk_pallas`` in interpret mode: ids exactly, values bit
   for bit.
+* B4's launch plan (``ops.kernels.ragged_rebuild_plan``): every (row,
+  slot) of the output is written exactly once, a vector group never
+  straddles a granule, and the kernel's indexing over that plan (vector
+  loads of 4 contiguous ids included) equals the plain version; the
+  offset scan's tile-local offsets and tile totals give
+  ``granule_offsets``.
+* B5's fold constants (``ops.kernels.tokenize_fold``) against Python's
+  ``%`` on 64-bit hashes, and a numpy model of csrc/tokenize_hash.cu's
+  word-window byte walk (aligned windows, the shift to the token's first
+  byte, refills, the byte path near the slab's end or on an unaligned
+  slab, truncation) against ``tokenize_hash_pallas`` in interpret mode.
 
 The kernels themselves run only on the card, where ``chip_smoke.py``
 holds them against their plain versions bit for bit.
@@ -20,8 +31,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
-from tfidf_tpu.ops.pallas_kernels import fused_score_topk_pallas
+from tfidf_tpu.ops import device_tokenize as jdt
+from tfidf_tpu.ops.pallas_kernels import (fused_score_topk_pallas,
+                                          tokenize_hash_pallas)
 from tfidf_tpu.ops.sparse import sorted_term_counts as jax_sorted_term_counts
 from tfidf_tpu_torch.ops import kernels as K
 from tfidf_tpu_torch.ops.sparse import sparse_scores
@@ -211,3 +226,255 @@ def test_keyed_selection_matches_pallas(seed, d, length, k, dtype):
     pv, pt = K.fused_score_topk(t(ids), t(cnt), t(head), t(lens), t(idf), k=k)
     np.testing.assert_array_equal(pt.numpy(), jt)
     assert (tt.numpy()[3] == -1).all()  # the row with no head slot
+
+
+# --- B4: the rebuild's launch plan and indexing ---------------------------
+
+def _b4_groups(p, d, length):
+    """(row, first slot) of every group the plan processes: rows below D
+    (a warp past the last row returns), groups whose first slot is below
+    L (csrc/ragged_rebuild.cu's loop bound)."""
+    b, w, ps, lane = np.meshgrid(np.arange(p["blocks"]), np.arange(p["warps"]),
+                                 np.arange(p["passes"]), np.arange(32),
+                                 indexing="ij")
+    row = (b * p["warps"] + w).ravel()
+    j0 = ((ps * 32 + lane) * p["group"]).ravel()
+    keep = (row < d) & (j0 < length)
+    return row[keep], j0[keep]
+
+
+def _b4_kernel_model(flat, lens, length, align, p):
+    """The kernel's indexing over the plan: offg by the scan, then per
+    group ``src = (min(offg + j0 >> shift, ngran - 1) << shift) +
+    (j0 & (G - 1))`` and ``group`` contiguous ids from it."""
+    d = lens.shape[0]
+    ngran = flat.size // align
+    offg = np.concatenate([[0], np.cumsum(
+        (np.maximum(lens.astype(np.int64), 0) + align - 1) >> p["shift"])])[:-1]
+    out = np.full((d, length), -1, np.int64)
+    row, j0 = _b4_groups(p, d, length)
+    gran = np.minimum(offg[row] + (j0 >> p["shift"]), ngran - 1)
+    src = (gran << p["shift"]) + (j0 & (align - 1))
+    for e in range(p["group"]):
+        out[row, j0 + e] = flat[src + e]
+    return out
+
+
+@pytest.mark.parametrize("d", [1, 7, 4096])
+@pytest.mark.parametrize("length", [1, 6, 250, 256])
+@pytest.mark.parametrize("align", [1, 2, 4, 8, 16, 32, 64])
+def test_rebuild_plan_owns_every_slot_once(d, length, align):
+    for itemsize in (2, 4):
+        for flat_align, out_align in ((256, 256), (2, 256), (256, 4)):
+            p = K.ragged_rebuild_plan(d, length, align, itemsize=itemsize,
+                                      flat_align=flat_align,
+                                      out_align=out_align)
+            row, j0 = _b4_groups(p, d, length)
+            slots = (row[:, None] * length + j0[:, None]
+                     + np.arange(p["group"])[None, :]).ravel()
+            assert (j0 + p["group"] <= length).all()  # no write past a row
+            assert (np.bincount(slots, minlength=d * length) == 1).all()
+            assert 1 << p["shift"] == align
+            assert p["blocks"] * p["warps"] >= d > (p["blocks"] - 1) * p["warps"]
+            vector = p["group"] == 4
+            assert vector == (align % 4 == 0 and length % 4 == 0
+                              and flat_align % (4 * itemsize) == 0
+                              and out_align % 16 == 0)
+            if vector:  # a group lies inside one granule
+                assert ((j0 >> p["shift"])
+                        == ((j0 + 3) >> p["shift"])).all()
+                assert (j0 % 4 == 0).all()
+
+
+@pytest.mark.parametrize("align", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("length", [6, 250, 256])
+@pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+def test_rebuild_kernel_model_equals_plain(align, length, dtype):
+    rng = np.random.default_rng(align * 1000 + length)
+    d = 37
+    lens = rng.integers(-3, length + 1, d).astype(np.int32)
+    lens[0], lens[1], lens[-1] = 0, -1, length
+    ngran = int(((np.maximum(lens, 0) + align - 1) // align).sum()) + 3
+    flat = rng.integers(0, 60000, ngran * align).astype(dtype)
+    p = K.ragged_rebuild_plan(d, length, align, itemsize=flat.itemsize)
+    got = _b4_kernel_model(flat, lens, length, align, p)
+    want = K.ragged_rebuild(torch.from_numpy(flat), torch.from_numpy(lens),
+                            length=length, align=align)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _scan_model(lens, align):
+    """csrc/ragged_rebuild.cu granule_scan_kernel: per tile of 1,024 rows
+    (a block, a row a thread), the tile-local exclusive offsets, then one
+    total per tile, in the plan's scratch layout."""
+    d = lens.size
+    c = (np.maximum(lens.astype(np.int64), 0) + align - 1) // align
+    tiles = -(-d // 1024)
+    padded = np.zeros(tiles * 1024, np.int64)
+    padded[:d] = c
+    per_tile = padded.reshape(tiles, 1024)
+    local = (np.cumsum(per_tile, axis=1) - per_tile).ravel()[:d]
+    return np.concatenate([local, per_tile.sum(axis=1)])
+
+
+@pytest.mark.parametrize("d", [1, 511, 1024, 1025, 32768, 40000])
+@pytest.mark.parametrize("align", [1, 16])
+def test_offset_scan_model_gives_granule_offsets(d, align):
+    # a row's offset is its tile-local offset plus the totals of the
+    # tiles before it (the rebuild's warp sum)
+    lens = np.random.default_rng(d).integers(-4, 300, d).astype(np.int32)
+    p = K.ragged_rebuild_plan(d, 256, align, itemsize=2)
+    scratch = _scan_model(lens, align)
+    assert scratch.size == p["scratch"]
+    totals = scratch[d:]
+    before = np.concatenate([[0], np.cumsum(totals)])[np.arange(d) >> 10]
+    want = K.granule_offsets(torch.from_numpy(lens), align).numpy()
+    np.testing.assert_array_equal(scratch[:d] + before, want)
+
+
+def test_rebuild_plan_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        K.ragged_rebuild_plan(0, 256, 16, itemsize=2)
+    with pytest.raises(ValueError):
+        K.ragged_rebuild_plan(4, 256, 12, itemsize=2)
+
+
+# --- B5: the fold's constants and the word-window byte walk ---------------
+
+_FOLD_VOCABS = [1, 2, 3, 255, 4093, 65521, 65535, 65536]
+_M64 = (1 << 64) - 1
+
+
+@pytest.mark.parametrize("vocab", _FOLD_VOCABS)
+@settings(max_examples=300, deadline=None)
+@given(h=st.integers(0, _M64))
+def test_fold_constants_match_python_mod(vocab, h):
+    assert K.tokenize_fold(h, vocab) == (h ^ (h >> 32)) % vocab
+
+
+@pytest.mark.parametrize("vocab", _FOLD_VOCABS)
+def test_fold_constants_at_the_edges(vocab):
+    m32, magic = K.tokenize_fold_constants(vocab)
+    assert m32 == (1 << 32) % vocab and 0 <= magic <= _M64
+    for h in (0, 1, _M64, _M64 - 1, 1 << 32, (1 << 32) - 1, 1 << 63,
+              0xFFFFFFFF00000000, vocab, vocab * (vocab + 1) - 1,
+              ((1 << 32) - 1) * vocab):
+        h &= _M64
+        assert K.tokenize_fold(h, vocab) == (h ^ (h >> 32)) % vocab
+
+
+def _walk_ids(slab, starts, lens, vocab, seed, trunc, vec):
+    """csrc/tokenize_hash.cu's byte walk in numpy and Python ints: the
+    first window of each live token (uint8: 16 bytes from the 8-aligned
+    position at or below the start; int32: 4 elements from the 4-aligned
+    one) when ``vec`` and it ends within the slab, shifted to the token's
+    first element; its first 9 (int32: 1) elements hashed with no bound
+    test when the window holds them and truncation allows, then the rest
+    of the window, aligned refills, or one element at a time where a
+    refill would run past the slab's end or ``vec`` is off; the fold of
+    ``tokenize_fold``."""
+    n = slab.size
+    wide = slab.dtype == np.int32
+    elems, align, bits = (4, 4, 32) if wide else (16, 8, 8)
+    emask = (1 << bits) - 1
+    state = jdt.FNV_OFFSET ^ (seed & _M64)
+
+    def window(p):  # elements [p, p + elems) as one little-endian integer
+        return int.from_bytes(slab[p:p + elems].tobytes(), "little")
+
+    def hash_token(s):
+        p = s & ~(align - 1)
+        if vec and 0 <= p and p + elems <= n:
+            win, avail = window(p) >> ((s - p) * bits), elems - (s - p)
+        else:
+            win, avail = 0, 0
+        h, k, pos = state, 0, s
+        sure = elems - align + 1  # a first window holds at least this many
+        if avail >= sure and (trunc <= 0 or trunc >= sure):
+            for i in range(sure):
+                b = (win >> (i * bits)) & emask
+                if b == 32 or 9 <= b <= 13:
+                    return h
+                h = ((h ^ b) * jdt.FNV_PRIME) & _M64
+            win >>= sure * bits
+            avail, k, pos = avail - sure, sure, pos + sure
+        while True:
+            lim = avail if trunc <= 0 else min(avail, trunc - k)
+            for i in range(lim):
+                b = (win >> (i * bits)) & emask
+                if b == 32 or 9 <= b <= 13:
+                    return h
+                h = ((h ^ b) * jdt.FNV_PRIME) & _M64
+            k += lim
+            pos += lim
+            if lim < avail or (trunc > 0 and k >= trunc) or pos >= n:
+                return h
+            if vec and pos % align == 0 and pos + elems <= n:
+                win, avail = window(pos), elems
+            else:
+                win, avail = int(slab[pos]) & 0xFFFFFFFF, 1
+
+    out = np.zeros(starts.shape, np.int32)
+    for d in range(starts.shape[0]):
+        for j in range(min(int(lens[d]), starts.shape[1])):
+            out[d, j] = K.tokenize_fold(hash_token(int(starts[d, j])), vocab)
+    return out
+
+
+def _walk_slab(kind):
+    """Docs in the bytes wire's layout, cut or shaped for one edge of the
+    walk; returns (uint8 slab, starts, lengths)."""
+    docs = [b"w1 w22 w333\tw4444", "héllo wörld 中文 éé naïve".encode(),
+            b"", b"a b  c\n\rd", b"x" * 7 + b" " + b"y" * 9]
+    if kind == "long_tokens":  # longer than two 16-byte windows
+        docs += [b"q" * 33 + b" " + b"r" * 50, "é".encode() * 20]
+    if kind == "utf8":
+        docs += ["日本語テキスト emoji😀 Ωmega ß".encode()] * 3
+    blens = np.array([len(d) for d in docs], np.int32)
+    albl = np.asarray(jdt.aligned_byte_lengths(blens, 16))
+    offs = np.concatenate([[0], np.cumsum(albl)[:-1]])
+    slab = np.full(int(albl.sum()) + 16, 0x20, np.uint8)
+    for doc, off in zip(docs, offs):
+        slab[off:off + len(doc)] = np.frombuffer(doc, np.uint8)
+    if kind == "len_not_multiple_of_8":
+        slab = slab[:int(offs[-1]) + len(docs[-1]) + 3]
+    if kind == "token_to_slab_end":  # the last token runs to the end
+        slab = slab[:int(offs[-1]) + len(docs[-1])]
+    starts, _, lens, _ = jdt.token_starts(slab, blens, length=8, align=16)
+    return slab, np.asarray(starts), np.asarray(lens)
+
+
+@pytest.mark.parametrize("kind,vocab,seed,trunc", [
+    ("len_not_multiple_of_8", 1 << 16, 0, 0),
+    ("token_to_slab_end", 65521, 7, 0),
+    ("long_tokens", 1 << 16, 0xDEADBEEF12345678, 0),
+    ("utf8", 3, 1, 0),
+    ("long_tokens", 65535, 0, 1),
+    ("utf8", 1 << 16, 5, 3),
+    ("long_tokens", 4093, 0, 16),
+    ("token_to_slab_end", 1 << 16, 0, 16)])
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("wide", [False, True])
+def test_window_walk_matches_pallas(kind, vocab, seed, trunc, vec, wide):
+    slab, starts, lens = _walk_slab(kind)
+    assert kind != "len_not_multiple_of_8" or slab.size % 8
+    if kind == "token_to_slab_end":
+        assert slab[-1] != 0x20 and lens.sum() > 0
+    want = np.asarray(tokenize_hash_pallas(
+        jnp.asarray(slab.astype(np.int32)), jnp.asarray(starts),
+        jnp.asarray(lens), vocab_size=vocab, seed=seed, truncate_at=trunc,
+        interpret=True))
+    walk = slab.astype(np.int32) if wide else slab
+    got = _walk_ids(walk, starts, lens, vocab, seed, trunc, vec)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("d,length", [(1, 1), (9, 6), (4096, 250),
+                                      (32768, 256)])
+@pytest.mark.parametrize("slab_align,vec", [(256, True), (16, True),
+                                            (8, False), (1, False)])
+def test_tokenize_hash_plan(d, length, slab_align, vec):
+    p = K.tokenize_hash_plan(d, length, slab_align=slab_align)
+    assert p["vec"] == vec and p["group"] == 1
+    row, j0 = _b4_groups(p, d, length)
+    assert (np.bincount(row * length + j0, minlength=d * length) == 1).all()

@@ -62,12 +62,17 @@ SIGNATURES = {
     "tfidf_tf_df": [_P, _I, _P, _P, _P, _I, _I, _I, _LL, _P],
     # vals, val_dtype, tids, words, n, stream
     "tfidf_pack_words": [_P, _I, _P, _P, _LL, _P],
-    # flat, flat_dtype, offg, out, D, L, align, n_granules, stream
-    "tfidf_ragged_rebuild": [_P, _I, _P, _P, _I, _I, _I, _LL, _P],
+    # flat, flat_dtype, lengths, scratch, out, D, L, align, n_granules, then
+    # the plan (ops/kernels.py ragged_rebuild_plan): group, warps; scan,
+    # stream
+    "tfidf_ragged_rebuild": [_P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _I,
+                             _I, _P],
     # slab, slab_dtype, n, starts, lengths, ids, D, L, seed_state,
-    # vocab_size, truncate_at, stream
+    # vocab_size, m32, magic, truncate_at, then the plan (ops/kernels.py
+    # tokenize_hash_plan): warps, vec; stream
     "tfidf_tokenize_hash": [_P, _I, _LL, _P, _P, _P, _I, _I,
-                            ctypes.c_uint64, _I, _I, _P],
+                            ctypes.c_uint64, _I, ctypes.c_uint,
+                            ctypes.c_ulonglong, _I, _I, _I, _P],
     # data, cols, qmat, out, rows, L, Q, then the plan (ops/kernels.py
     # tile_scores_plan): g_log2, v, nv, passes, sv, warps, cap, blocks;
     # stream

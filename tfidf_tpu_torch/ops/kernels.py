@@ -296,24 +296,83 @@ def ragged_rebuild(flat: torch.Tensor, lengths: torch.Tensor, *,
     out = torch.empty((d, length), dtype=torch.int32, device=flat.device)
     if d == 0 or length == 0:
         return out
-    ragged_rebuild_launch(flat, granule_offsets(lengths, align), out,
-                          align=align)
+    ragged_rebuild_launch(flat, lengths, out, align=align)
     return out
 
 
-def ragged_rebuild_launch(flat: torch.Tensor, offg: torch.Tensor,
-                          out: torch.Tensor, *, align: int) -> None:
-    """:func:`ragged_rebuild`'s kernel launch alone: fills ``out`` [D, L]
-    from ``flat`` and the granule offsets ``offg`` of
-    :func:`granule_offsets`. CUDA tensors that :func:`ragged_rebuild`
-    has checked; lets a benchmark time the kernel without the offsets."""
+_ROW_WARPS = 4  # rows per block of the warp-per-row kernels (B4, B5)
+_SCAN_TILE = 1024  # rows per block of B4's offset scan
+
+
+def _warp_per_row_plan(d: int, length: int, group: int) -> Dict[str, int]:
+    """A warp per row, ``warps`` rows a block; lane l owns the groups
+    ``pass * 32 + l`` of ``group`` consecutive slots: row
+    ``block * warps + warp``, slots ``[(pass * 32 + lane) * group,
+    ... + group)``."""
+    return {"group": group, "warps": _ROW_WARPS,
+            "blocks": -(-d // _ROW_WARPS),
+            "passes": -(-length // (32 * group))}
+
+
+def ragged_rebuild_plan(d: int, length: int, align: int, *, itemsize: int,
+                        flat_align: int = 16,
+                        out_align: int = 16) -> Dict[str, int]:
+    """The launch plan of the rebuild kernel (csrc/ragged_rebuild.cu) for
+    D rows of L slots from a stream of ``itemsize``-byte ids in granules
+    of ``align``: :func:`_warp_per_row_plan`'s ownership, and
+
+    * ``group`` 4 (the vector path: one 8- or 16-byte load of a
+      granule-contiguous source, one 16-byte store) when G and L are
+      multiples of 4, ``flat_align`` (the byte alignment of the stream)
+      covers 4 ids and ``out_align`` 16 bytes; else 1 (the scalar path).
+      A group of 4 never straddles a granule: its first slot is a
+      multiple of 4 and G a multiple of 4;
+    * ``shift`` = log2 G;
+    * ``scratch``: the int32 scratch the offset scan writes, the
+      tile-local offsets of the D rows then one total per tile of
+      ``_SCAN_TILE`` rows (a row's offset is its local offset plus the
+      totals of the tiles before it).
+    """
+    d, length, align = int(d), int(length), int(align)
+    if d < 1 or length < 1 or align < 1 or align & (align - 1):
+        raise ValueError(f"ragged_rebuild_plan: d {d}, length {length}, "
+                         f"align {align}")
+    vector = (align % 4 == 0 and length % 4 == 0
+              and flat_align % (4 * itemsize) == 0 and out_align % 16 == 0)
+    return {**_warp_per_row_plan(d, length, 4 if vector else 1),
+            "shift": align.bit_length() - 1,
+            "scratch": d + -(-d // _SCAN_TILE)}
+
+
+def ragged_rebuild_launch(flat: torch.Tensor, lengths: torch.Tensor,
+                          out: torch.Tensor, *, align: int,
+                          scratch: Optional[torch.Tensor] = None,
+                          scan: bool = True) -> None:
+    """:func:`ragged_rebuild`'s device work: one C call that launches the
+    granule-offset scan into ``scratch`` (int32, the plan's ``scratch``
+    size; allocated when None) and then the rebuild into ``out`` [D, L],
+    with the plan of :func:`ragged_rebuild_plan`. ``scan=False`` skips
+    the scan and reads ``scratch`` as given (for example the offsets of
+    :func:`granule_offsets` followed by zero tile totals), so a benchmark
+    can time the rebuild alone. CUDA tensors that :func:`ragged_rebuild`
+    has checked."""
     d, length = out.shape
+    p = ragged_rebuild_plan(d, length, align, itemsize=flat.element_size(),
+                            flat_align=_alignment(flat),
+                            out_align=_alignment(out))
+    if scratch is None:
+        scratch = torch.empty(p["scratch"], dtype=torch.int32,
+                              device=out.device)
     _launch("ragged_rebuild", load().tfidf_ragged_rebuild, flat.device,
-            _ptr(flat), _TOKEN_CODES[flat.dtype], _ptr(offg), _ptr(out),
-            d, length, align, flat.numel() // align)
+            _ptr(flat), _TOKEN_CODES[flat.dtype], _ptr(lengths),
+            _ptr(scratch), _ptr(out), d, length, align, flat.numel() // align,
+            p["group"], p["warps"], int(scan))
 
 
 # --- B5: tokenize + hash ----------------------------------------------
+
+_M64 = (1 << 64) - 1
+
 
 def tokenize_hash_plain(slab: torch.Tensor, starts: torch.Tensor,
                         lengths: torch.Tensor, *, vocab_size: int,
@@ -373,11 +432,52 @@ def tokenize_hash(slab: torch.Tensor, starts: torch.Tensor,
     if d == 0 or length == 0:
         return ids
     hi, lo = dt.seed_state(seed)
+    m32, magic = tokenize_fold_constants(vocab_size)
+    p = tokenize_hash_plan(d, length, slab_align=_alignment(slab))
     _launch(name, load().tfidf_tokenize_hash, slab.device,
             _ptr(slab), _SLAB_CODES[slab.dtype], slab.numel(), _ptr(starts),
             _ptr(lengths), _ptr(ids), d, length,
-            ctypes.c_uint64((hi << 32) | lo), vocab_size, truncate_at)
+            ctypes.c_uint64((hi << 32) | lo), vocab_size, m32, magic,
+            truncate_at, p["warps"], int(p["vec"]))
     return ids
+
+
+def tokenize_hash_plan(d: int, length: int, *,
+                       slab_align: int = 16) -> Dict[str, int]:
+    """The launch plan of the tokenize+hash kernel (csrc/tokenize_hash.cu)
+    for D rows of L slots: :func:`_warp_per_row_plan`'s ownership with
+    groups of one slot (lane l hashes slots ``pass * 32 + l``), and
+    ``vec`` when ``slab_align`` is 16 (the byte walk loads aligned
+    windows; else it reads one byte at a time)."""
+    d, length = int(d), int(length)
+    if d < 1 or length < 1:
+        raise ValueError(f"tokenize_hash_plan: d {d}, length {length}")
+    return {**_warp_per_row_plan(d, length, 1), "vec": slab_align % 16 == 0}
+
+
+def tokenize_fold_constants(vocab_size: int) -> Tuple[int, int]:
+    """The fold's constants (csrc/tokenize_hash.cu ``Fold``): ``2^32 % V``
+    and Lemire's ``ceil(2^64 / V)`` mod 2^64, for 1 <= V <= 2^16."""
+    dt.check_vocab(vocab_size)
+    return (1 << 32) % vocab_size, (_M64 // vocab_size + 1) & _M64
+
+
+def tokenize_fold(h: int, vocab_size: int) -> int:
+    """csrc/tokenize_hash.cu's ``fold`` of a 64-bit hash, line for line
+    on Python ints: ``(h ^ (h >> 32)) % V`` as a mask for a power-of-two
+    V, else as the limbs' ``((f_hi % V) * (2^32 % V) + f_lo % V) % V``
+    with each 32-bit remainder by ``fastmod``."""
+    m32, magic = tokenize_fold_constants(vocab_size)
+    v = vocab_size
+    f_hi = h >> 32
+    f_lo = (h & 0xFFFFFFFF) ^ f_hi
+    if v & (v - 1) == 0:
+        return f_lo & (v - 1)
+
+    def fastmod(a: int) -> int:  # __umul64hi(magic * a mod 2^64, V)
+        return ((magic * a & _M64) * v) >> 64
+
+    return fastmod(fastmod(f_hi) * m32 + fastmod(f_lo))
 
 
 # --- B6: tile scores ----------------------------------------------------
