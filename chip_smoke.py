@@ -16,7 +16,17 @@ Phases, each printed as one JSON line:
    slots (Zipf rows, and uniform rows with more head slots than a warp's
    shared-memory list, which take the rescoring path); its yardstick is
    ``torch.topk`` of a precomputed ``sparse_scores`` block (the selection
-   half only). The ragged-rebuild (B4) and tokenize+hash (B5) cases run
+   half only). B2 (TF/DF) runs through the wrapper and as its launch
+   alone into outputs filled with -1 first, on the dense batch with and
+   without df, with ``id_offset``, uint16 ids, V 4,095 (rows off
+   a 16-byte boundary), V 1, V 40,000 at D 512 (five vocab tiles), D 1,
+   zero lengths, negative lengths and lengths past L, ids out of range
+   and the golden path's exact vocab; its kernel time is the launch
+   alone on buffers made beforehand. B3 (pack) runs every score dtype,
+   special values, n 1, 3 and 4,099, inputs one word past an aligned
+   address and an ``out`` at an odd word address; beside it,
+   ``launch_floor_ms``, an empty kernel timed the same way. The
+   ragged-rebuild (B4) and tokenize+hash (B5) cases run
    one 32,768-doc chunk of the Zipf corpus at L = 256: B4 on uint16 and
    int32 flat streams at granules 1, 2, 4, 8, 16 and 32, and at G 4 and
    16 with L = 250, rows of length 0 and below 0, D = 1 and a stream at
@@ -75,8 +85,12 @@ Phases, each printed as one JSON line:
    equal the Q = 64 search; a snapshot restored on the CPU and an
    8,192-doc index built on both devices agree with the card
    (``compare_search``). Prints index seconds, warm search latency and
-   qps, the host time of ``fill_query_matrix`` and a device profile of
-   one warm Q = 64 search.
+   qps with the median host time of ``fill_query_matrix`` inside those
+   searches, that time alone, a device profile of one warm Q = 64
+   search, B6's launches in such a search timed by CUDA events (a sleep
+   kernel holds the stream around each), and unfiltered and id_range
+   Q = 256 searches run in turns, the order reversed every round, each
+   split into ``fill_query_matrix``, device-busy and the rest.
 10. ``kernel_cases_b6``: B6 on real tiles of that index (4,096 rows,
    L = 256, V = 2^16) at Q = 1, 3, 16, 17, 32, 33, 64, 100, 128, 256,
    257 and 512 on the tfidf face and 64 and 256 on bm25, a ragged tile,
@@ -93,6 +107,7 @@ line. It needs a CUDA device and the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -163,22 +178,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_span_ms(fn, reps: int = 20, warmup: int = 3, setup=None) -> float:
+def device_span_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device milliseconds of one ``fn()`` call, from its first
     device operation to the end of its last: a sleep kernel holds the
     stream while the host enqueues the start event, the call and the end
-    event, so the host's launch latency is not counted. ``setup()``, if
-    given, runs before each call, outside the timed span."""
+    event, so the host's launch latency is not counted."""
     for _ in range(warmup):
-        if setup:
-            setup()
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        if setup:
-            setup()
         torch.cuda.synchronize()
         torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
@@ -189,14 +199,15 @@ def device_span_ms(fn, reps: int = 20, warmup: int = 3, setup=None) -> float:
     return statistics.median(times)
 
 
-def device_events(fn):
-    """Device activity of one ``fn()`` call (after one warm-up call),
-    from torch.profiler: ``(name, ms)`` per kernel, copy or memset, plus
-    the wall milliseconds of the window."""
+def device_events(fn, warm_up: bool = True):
+    """Device activity of one ``fn()`` call (after one warm-up call, or
+    none), from torch.profiler: ``(name, ms)`` per kernel, copy or memset,
+    plus the wall milliseconds of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -209,24 +220,22 @@ def device_events(fn):
     return events, wall_ms
 
 
-def kernel_times(call, plain, library=None, kernel_only=None,
-                 kernel_setup=None) -> dict:
+def kernel_times(call, plain, library=None, kernel_only=None) -> dict:
     """Device time of one wrapper call (``ms``), of its kernel launch
-    alone (``kernel_only``, after ``kernel_setup`` outside the span; by
-    default the call itself, for wrappers whose only device work is the
-    launch), of the plain version and of the library call, and the
-    call's latency from the host."""
+    alone (``kernel_only``; by default the call itself, for wrappers
+    whose only device work is the launch), of the plain version and of
+    the library call, and the call's latency from the host."""
     ms = device_span_ms(call)
-    k_ms = device_span_ms(kernel_only, setup=kernel_setup) if kernel_only else ms
+    k_ms = device_span_ms(kernel_only) if kernel_only else ms
     return {"ms": ms, "kernel_ms": k_ms,
             "call_ms": time_ms(call), "plain_ms": device_span_ms(plain),
             "library_ms": device_span_ms(library) if library else None}
 
 
-def profile_summary(fn, top_n: int = 12) -> dict:
+def profile_summary(fn, top_n: int = 12, warm_up: bool = True) -> dict:
     """Where the device time of one warm ``fn()`` goes: top device
     operations and the idle share of the window."""
-    events, wall_ms = device_events(fn)
+    events, wall_ms = device_events(fn, warm_up)
     by_name = {}
     for ev, ms in events:
         row = by_name.setdefault(ev, [0, 0.0])
@@ -361,6 +370,108 @@ def env_phase(_build):
     return smi
 
 
+def b2_cases(K, rng, toks, toks_d, lens_d, cases):
+    """B2 against its plain version: the wrapper's output, and the
+    launch alone into counts and df filled with -1 (every cell must be
+    written, df zeroed), over the main batch and its edges."""
+    import tfidf_tpu_torch as T
+    dev = toks_d.device
+
+    def case(label, tk, ln, v, plain_tk=None, **kw):
+        want_c, want_d = K.tf_df_plain(tk if plain_tk is None else plain_tk,
+                                       ln, vocab_size=v, **kw)
+        got = {"wrapper": K.tf_df(tk, ln, vocab_size=v, **kw)}
+        filled = (torch.full_like(want_c, -1),
+                  None if want_d is None else torch.full_like(want_d, -1))
+        K.tf_df_launch(tk, ln, *filled, id_offset=kw.get("id_offset", 0))
+        got["launch into -1"] = filled
+        torch.cuda.synchronize()
+        for way, (kc, kd) in got.items():
+            check(torch.equal(kc, want_c),
+                  f"B2 {label} ({way}): counts differ from plain")
+            check((kd is None) == (want_d is None)
+                  and (kd is None or torch.equal(kd, want_d)),
+                  f"B2 {label} ({way}): df differs from plain")
+        p = K.tf_df_plan(tk.shape[0], tk.shape[1], v,
+                         with_df=want_d is not None)
+        cases.append({"kernel": "tf_df", "case": label,
+                      "shape": list(tk.shape), "V": v, "vt": p["vt"],
+                      "tiles": p["tiles"], "blocks": p["blocks"],
+                      "counts_equal": True, "df_equal": True,
+                      "max_abs_err": 0})
+
+    case("with_df", toks_d, lens_d, DENSE_VOCAB)
+    case("counts_only", toks_d, lens_d, DENSE_VOCAB, with_df=False)
+    case("id_offset", toks_d, lens_d, DENSE_VOCAB // 2, id_offset=1024)
+    case("uint16_ids", torch.from_numpy(toks.astype(np.uint16)).to(dev),
+         lens_d, DENSE_VOCAB, plain_tk=toks_d)
+    # V % 4 != 0: rows start off a 16-byte boundary (and id 4095 drops)
+    case("vocab_4095", toks_d, lens_d, 4095)
+    case("vocab_1", toks_d, lens_d, 1)
+    wide_t, wide_l = zipf_tokens(rng, 512, DOC_LEN, 40000)
+    case("vocab_40000_D512", torch.from_numpy(wide_t).to(dev),
+         torch.from_numpy(wide_l).to(dev), 40000)  # 5 vocab tiles
+    case("D1", toks_d[:1], lens_d[:1], DENSE_VOCAB)
+    case("zero_lengths", toks_d, torch.zeros_like(lens_d), DENSE_VOCAB)
+    odd = lens_d.clone()
+    odd[::3] = 1 << 30
+    odd[1::3] = DOC_LEN + 1
+    odd[2::7] = -4
+    case("lengths_negative_and_above_L", toks_d, odd, DENSE_VOCAB)
+    bad = toks_d.clone()
+    bad[:, ::3] = -1 - bad[:, ::3]
+    bad[:, 1::5] += 3 * DENSE_VOCAB
+    case("ids_out_of_range", bad, lens_d, DENSE_VOCAB)
+    case("ids_out_of_range_id_offset", bad, lens_d, 1000, id_offset=2000)
+    gold = T.pack_corpus(golden_corpus(T.Corpus, np.random.default_rng(SEED)),
+                         T.PipelineConfig.golden())
+    case("golden_exact_vocab",
+         torch.from_numpy(np.asarray(gold.token_ids, np.int32)).to(dev),
+         torch.from_numpy(np.asarray(gold.lengths, np.int32)).to(dev),
+         gold.vocab_size)
+
+
+def b3_cases(K, vals, tids, cases):
+    """B3 against its plain version: the main [D, K] batch in every score
+    dtype, special values, and the edges of the plan: n 1, 3 and 4,099,
+    inputs one word past an aligned address (a head of 3, then groups),
+    and an out slice at an odd word address (every word alone)."""
+    dev = vals.device
+    special_v = torch.tensor([[0.0, float("nan"), 70000.0, 65504.0, 1e-8,
+                               2.5]], device=dev)
+    special_t = torch.tensor([[0, 7, 65535, 3, 9, -1]], dtype=torch.int32,
+                             device=dev)
+    fv, ft = vals.reshape(-1), tids.reshape(-1)
+
+    def odd_out(n):
+        return torch.empty(n + 1, dtype=torch.uint32, device=dev)[1:]
+
+    inputs = {"float32": (vals, tids, None),
+              "bfloat16": (vals.to(torch.bfloat16), tids, None),
+              "float16": (vals.to(torch.float16), tids, None),
+              "special_values": (special_v, special_t, None),
+              "n1": (fv[:1], ft[:1], None),
+              "n3": (fv[:3], ft[:3], None),
+              "n4099": (fv[:4099], ft[:4099], None),
+              "n4099_float16": (fv[:4099].half(), ft[:4099], None),
+              "one_word_past_aligned": (fv[1:4100], ft[1:4100], odd_out(4099)),
+              "out_at_odd_word": (fv[:4099], ft[:4099], odd_out(4099)),
+              "out_at_odd_word_bfloat16": (fv[:4099].bfloat16(), ft[:4099],
+                                           odd_out(4099))}
+    for label, (pv, pt, out) in inputs.items():
+        kw_ = K.pack_words(pv, pt, out=out)
+        pw_ = K.pack_words_plain(pv, pt)
+        torch.cuda.synchronize()
+        check(same_bits(kw_, pw_), f"B3 {label}: words differ from plain")
+        p = K.pack_words_plan(pv.numel(), itemsize=pv.element_size(),
+                              vals_addr=pv.data_ptr(), tids_addr=pt.data_ptr(),
+                              out_addr=kw_.data_ptr())
+        cases.append({"kernel": "pack_words", "case": label,
+                      "shape": list(pv.shape), "head": p["head"],
+                      "groups": p["groups"], "tail": p["tail"],
+                      "words_equal": True, "max_abs_err": 0})
+
+
 def kernel_phase(K):
     """Each kernel against its plain version at the main path's shapes."""
     from tfidf_tpu_torch.ops.scoring import idf_from_df
@@ -470,48 +581,30 @@ def kernel_phase(K):
     toks, lens = zipf_tokens(rng, N_DOCS, DOC_LEN, DENSE_VOCAB)
     toks_d = torch.from_numpy(toks).to(dev)
     lens_d = torch.from_numpy(lens).to(dev)
-    toks16 = torch.from_numpy(toks.astype(np.uint16)).to(dev)
-    for label, kw, tk in (("with_df", {}, toks_d),
-                          ("counts_only", {"with_df": False}, toks_d),
-                          ("id_offset", {"id_offset": 1024}, toks_d),
-                          ("uint16_ids", {}, toks16)):
-        v = DENSE_VOCAB // 2 if label == "id_offset" else DENSE_VOCAB
-        kc, kd = K.tf_df(tk, lens_d, vocab_size=v, **kw)
-        pc, pd = K.tf_df_plain(toks_d, lens_d, vocab_size=v, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(kc, pc), f"B2 {label}: counts differ from plain")
-        check((kd is None) == (pd is None) and (kd is None or torch.equal(kd, pd)),
-              f"B2 {label}: df differs from plain")
-        cases.append({"kernel": "tf_df", "case": label,
-                      "shape": list(tk.shape), "V": v, "counts_equal": True,
-                      "df_equal": True, "max_abs_err": 0})
+    b2_cases(K, rng, toks, toks_d, lens_d, cases)
     live = torch.arange(DOC_LEN, device=dev)[None, :] < lens_d[:, None]
     flat = (torch.arange(N_DOCS, device=dev, dtype=torch.int64)[:, None]
             * DENSE_VOCAB + toks_d)[live]
-    # The function reads lengths and the live tokens and writes all of
-    # counts [D, V] and df [V]; the kernel alone writes only the cells
-    # and df entries this batch touches (the wrapper's fill does the rest).
+    # The function (and the kernel: it writes every cell) reads lengths
+    # and the live tokens and writes all of counts [D, V] and df [V].
     counts_ref, df_ref = K.tf_df_plain(toks_d, lens_d, vocab_size=DENSE_VOCAB)
     n_live = int(lens_d.clamp(max=DOC_LEN).sum())
-    read_bytes = N_DOCS * 4 + n_live * 4
-    b2_bytes = read_bytes + N_DOCS * DENSE_VOCAB * 4 + DENSE_VOCAB * 4
-    b2_kernel_bytes = (read_bytes + int((counts_ref > 0).sum()) * 4
-                       + int((df_ref > 0).sum()) * 4)
-    counts_buf = torch.zeros_like(counts_ref)
-    df_buf = torch.zeros_like(df_ref)
+    b2_bytes = (N_DOCS * 4 + n_live * 4 + N_DOCS * DENSE_VOCAB * 4
+                + DENSE_VOCAB * 4)
+    counts_buf = torch.full_like(counts_ref, -1)
+    df_buf = torch.full_like(df_ref, -1)
     summary["tf_df"] = {
         **kernel_times(
             lambda: K.tf_df(toks_d, lens_d, vocab_size=DENSE_VOCAB),
             lambda: K.tf_df_plain(toks_d, lens_d, vocab_size=DENSE_VOCAB),
             lambda: torch.bincount(flat, minlength=N_DOCS * DENSE_VOCAB),
-            # The kernel adds into zeroed outputs: a count it finds at 0
-            # is a first occurrence and adds to df.
+            # every launch of the call (df's zeroing, the histogram) on
+            # buffers allocated beforehand; nothing to fill
             kernel_only=lambda: K.tf_df_launch(toks_d, lens_d, counts_buf,
-                                               df_buf),
-            kernel_setup=lambda: (counts_buf.zero_(), df_buf.zero_())),
+                                               df_buf)),
         "library_call": "torch.bincount(d*V + id, minlength=D*V) (counts only)",
         "bound_ms": bound_ms(b2_bytes),
-        "kernel_bound_ms": bound_ms(b2_kernel_bytes), "max_abs_err": 0,
+        "kernel_bound_ms": bound_ms(b2_bytes), "max_abs_err": 0,
         "shape": {"D": N_DOCS, "L": DOC_LEN, "V": DENSE_VOCAB,
                   "live_tokens": n_live}}
     torch.cuda.synchronize()
@@ -519,26 +612,15 @@ def kernel_phase(K):
           "B2: the timed launch's output differs from plain")
 
     # --- B3: packed result words ---------------------------------------
-    special_v = torch.tensor([[0.0, float("nan"), 70000.0, 65504.0, 1e-8, 2.5]],
-                             device=dev)
-    special_t = torch.tensor([[0, 7, 65535, 3, 9, -1]], dtype=torch.int32,
-                             device=dev)
-    for label, pv, pt in (("float32", vals, tids),
-                          ("bfloat16", vals.to(torch.bfloat16), tids),
-                          ("float16", vals.to(torch.float16), tids),
-                          ("special_values", special_v, special_t)):
-        kw_ = K.pack_words(pv, pt)
-        pw_ = K.pack_words_plain(pv, pt)
-        torch.cuda.synchronize()
-        check(same_bits(kw_, pw_), f"B3 {label}: words differ from plain")
-        cases.append({"kernel": "pack_words", "case": label,
-                      "shape": list(pv.shape), "words_equal": True,
-                      "max_abs_err": 0})
+    b3_cases(K, vals, tids, cases)
     summary["pack_words"] = {
         **kernel_times(lambda: K.pack_words(vals, tids),
                        lambda: K.pack_words_plain(vals, tids)),
+        # an empty kernel timed the same way: what no design removes
+        "launch_floor_ms": device_span_ms(lambda: torch.cuda._sleep(0)),
         "bound_ms": bound_ms(vals.numel() * 12),
-        "kernel_bound_ms": bound_ms(vals.numel() * 12), "max_abs_err": 0, "shape": {"D": N_DOCS, "K": TOPK}}
+        "kernel_bound_ms": bound_ms(vals.numel() * 12), "max_abs_err": 0,
+        "shape": {"D": N_DOCS, "K": TOPK}}
     ingest_kernel_cases(K, summary, cases)
     emit({"phase": "kernel_cases", "cases": cases})
     return summary
@@ -1020,6 +1102,98 @@ def _same_search(a, b) -> bool:
 RETR_SETTINGS = {"tfidf": {}, "bm25": {"scorer": "bm25"},
                  "bm25:k1=1.5,b=0.6": {"scorer": "bm25:k1=1.5,b=0.6"},
                  "tfidf+id_range": {"filter": {"id_range": [0, 65536]}}}
+# About 0.5 ms at the H100's boost clock: longer than the host takes to
+# enqueue an event pair around one tile's launch.
+TILE_SLEEP_CYCLES = 1_000_000
+
+
+def b6_tile_times(K, r, queries) -> dict:
+    """Device ms of every B6 launch in one warm search, from CUDA events:
+    the wrapper is wrapped so that a sleep kernel holds the stream while
+    the host enqueues the start event, the launch and the end event; the
+    search's other work is unchanged."""
+    real = K.tile_scores
+    spans = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(TILE_SLEEP_CYCLES)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    K.tile_scores = timed
+    try:
+        r.search(queries, k=RETR_K)
+    finally:
+        K.tile_scores = real
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in spans]
+    return {"launches": len(ms), "sum_ms": sum(ms),
+            "median_ms": statistics.median(ms), "max_ms": max(ms)}
+
+
+@contextlib.contextmanager
+def timed_fills(R):
+    """Inside the block, every call of the retrieval module's
+    ``fill_query_matrix`` appends its host ms to the yielded list."""
+    real = R.fill_query_matrix
+    fills = []
+
+    def timed_fill(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            fills.append((time.perf_counter() - t0) * 1e3)
+
+    R.fill_query_matrix = timed_fill
+    try:
+        yield fills
+    finally:
+        R.fill_query_matrix = real
+
+
+def search_split(R, r, queries, settings, rounds: int = 4) -> dict:
+    """Warm searches of each setting in turns (one of each per round,
+    the order reversed every other round), each split into the host ms
+    of ``fill_query_matrix`` (timed inside the search), the device-busy
+    ms (torch.profiler over the next search of the same setting) and the
+    rest of the host latency; medians over the rounds, every round's
+    total and the setting's place in it (0 first), and the last round's
+    top device operations."""
+    rows = {name: [] for name in settings}
+    tops = {}
+    with timed_fills(R) as fills:
+        for rnd in range(rounds):
+            order = list(settings.items())
+            for place, (name, kw) in enumerate(order[::-1] if rnd % 2
+                                               else order):
+                fills.clear()
+                t0 = time.perf_counter()
+                r.search(queries, k=RETR_K, **kw)
+                total = (time.perf_counter() - t0) * 1e3
+                fill = sum(fills)
+                prof = profile_summary(
+                    lambda kw=kw: r.search(queries, k=RETR_K, **kw),
+                    top_n=6, warm_up=False)
+                busy = prof["device_busy_ms"]
+                rows[name].append({"total_ms": total, "fill_ms": fill,
+                                   "device_busy_ms": busy,
+                                   "rest_ms": total - fill - busy,
+                                   "place": place})
+                tops[name] = prof["top"]
+    return {name: {**{key: statistics.median(x[key] for x in got)
+                      for key in ("total_ms", "fill_ms", "device_busy_ms",
+                                  "rest_ms")},
+                   "totals_ms": [x["total_ms"] for x in got],
+                   "fills_ms": [x["fill_ms"] for x in got],
+                   "places": [x["place"] for x in got],
+                   "top": tops[name]}
+            for name, got in rows.items()}
 
 
 def path_retrieval(T, K, root, corpus_docs, total):
@@ -1078,8 +1252,11 @@ def path_retrieval(T, K, root, corpus_docs, total):
                       "filter let a row past 65,536 through")
             results[name, q] = res
             launches_per_search[f"{name}/Q{q}"] = launches["tile_scores"]
-            ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw))
-            latency[f"{name}/Q{q}"] = {"ms": ms, "qps": q / ms * 1e3}
+            with timed_fills(R) as fills:
+                ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw))
+            # one fill a search: the median of the loop's calls, warm-ups in
+            latency[f"{name}/Q{q}"] = {"ms": ms, "qps": q / ms * 1e3,
+                                       "fill_ms": statistics.median(fills)}
     for name, kw in RETR_SETTINGS.items():
         big = results[name, RETR_QUERIES]
         check(_same_search((big[0][:64], big[1][:64]), results[name, 64]),
@@ -1101,6 +1278,15 @@ def path_retrieval(T, K, root, corpus_docs, total):
         fill[f"Q{q}"] = host_ms(lambda: R.fill_query_matrix(
             queries[:q], cfg, r._idf_host(), buf), reps=5, warmup=1)
     prof = profile_summary(lambda: r.search(queries[:64], k=RETR_K))
+    # B6 in the same search from CUDA events (the profiler misses some of
+    # its records), and the filtered Q 256 search beside the unfiltered.
+    b6_events = b6_tile_times(K, r, queries[:64])
+    check(b6_events["launches"] == n_tiles,
+          f"path_retrieval: timed {b6_events['launches']} B6 launches, not "
+          f"{n_tiles}")
+    b6_profiled = [t for t in prof["top"] if "tile_scores" in t["name"]]
+    q256_split = search_split(R, r, queries[:RETR_QUERIES], {
+        name: RETR_SETTINGS[name] for name in ("tfidf", "tfidf+id_range")})
 
     # a snapshot taken on the card, searched on the CPU
     with tempfile.TemporaryDirectory(dir=os.path.dirname(root)) as snap:
@@ -1138,7 +1324,9 @@ def path_retrieval(T, K, root, corpus_docs, total):
           "q256_prefix_equals_q64": True, "snapshot_s": snap_s,
           "vs_cpu_restore": vs_cpu, "cpu_search_q64_s": cpu_search_s,
           "small_index_vs_cpu": small_cmp,
-          "device_profile_q64": prof, "ok": True})
+          "device_profile_q64": prof, "b6_tile_events_q64": b6_events,
+          "b6_profiled_q64": b6_profiled, "q256_split": q256_split,
+          "ok": True})
     return r, cfg, queries
 
 
@@ -1352,7 +1540,7 @@ def main() -> int:
                          "kernel_ms_k64", "kernel_ms_no_head_slots",
                          "rows_over_32_head_slots", "rebuild_only_ms",
                          "granule_offsets_chain_ms", "token_starts_ms",
-                         "other_shapes") if key in s}})
+                         "launch_floor_ms", "other_shapes") if key in s}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""What the CPU can check of the redesigned B6, B1, B4 and B5 kernels.
+"""What the CPU can check of the redesigned kernels (B1 to B6).
 
 * B6's launch plan (``ops.kernels.tile_scores_plan``): every (row,
   column) cell of the output is owned by exactly one (block, warp, lane
@@ -22,6 +22,17 @@
   word-window byte walk (aligned windows, the shift to the token's first
   byte, refills, the byte path near the slab's end or on an unaligned
   slab, truncation) against ``tokenize_hash_pallas`` in interpret mode.
+* B2's launch plan (``ops.kernels.tf_df_plan``, ``tf_df_row_split``):
+  every (doc, column) cell of counts written exactly once over the vocab
+  tiles, 16-byte vectors aligned in both memories whatever V % 4 and the
+  counts address, shared memory within 227 KB; and a numpy model of
+  csrc/tf_df.cu's block algorithm (per-doc row buffers with the shift,
+  first-occurrence DF partials flushed at the block's end, both ways of
+  clearing a buffer, the vocab-tile loop) against ``tf_df_pallas`` in
+  interpret mode.
+* B3's launch plan (``ops.kernels.pack_words_plan``): every word owned
+  once, groups aligned in all three arrays, misaligned pointers narrowed
+  to one word at a time.
 
 The kernels themselves run only on the card, where ``chip_smoke.py``
 holds them against their plain versions bit for bit.
@@ -35,7 +46,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from tfidf_tpu.ops import device_tokenize as jdt
-from tfidf_tpu.ops.pallas_kernels import (fused_score_topk_pallas,
+from tfidf_tpu.ops.histogram import tf_counts as jax_tf_counts
+from tfidf_tpu.ops.pallas_kernels import (fused_score_topk_pallas, tf_df_pallas,
                                           tokenize_hash_pallas)
 from tfidf_tpu.ops.sparse import sorted_term_counts as jax_sorted_term_counts
 from tfidf_tpu_torch.ops import kernels as K
@@ -478,3 +490,235 @@ def test_tokenize_hash_plan(d, length, slab_align, vec):
     assert p["vec"] == vec and p["group"] == 1
     row, j0 = _b4_groups(p, d, length)
     assert (np.bincount(row * length + j0, minlength=d * length) == 1).all()
+
+
+# --- B2: the TF/DF kernel's plan, row split and block algorithm -----------
+
+def _b2_rows(p, d, vocab, counts_addr):
+    """(doc, first column, width, row split) of every row the plan's
+    blocks build: tile y covers columns [y * vt, ...), block x the docs
+    x, x + blocks, ..."""
+    for y in range(p["tiles"]):
+        c0 = y * p["vt"]
+        w = min(p["vt"], vocab - c0)
+        for x in range(p["blocks"]):
+            for doc in range(x, d, p["blocks"]):
+                row_addr = counts_addr + (doc * vocab + c0) * 4
+                yield x, y, doc, c0, w, K.tf_df_row_split(row_addr, w)
+
+
+@pytest.mark.parametrize("d", [1, 7, 600])
+@pytest.mark.parametrize("vocab,max_tile", [(1, 8192), (3, 8192), (4, 8192),
+                                            (5, 8192), (13, 8), (37, 12),
+                                            (4095, 8192), (4096, 8192),
+                                            (4096, 1024), (40000, 8192)])
+@pytest.mark.parametrize("counts_addr", [0, 4, 8, 12])
+def test_tf_df_plan_writes_every_cell_once(d, vocab, max_tile, counts_addr):
+    for sms in (1, 132):
+        p = K.tf_df_plan(d, 256, vocab, sms=sms, max_tile=max_tile)
+        assert p["vt"] % 4 == 0 and (p["tiles"] - 1) * p["vt"] < vocab
+        assert p["tiles"] * p["vt"] >= vocab and 1 <= p["blocks"] <= d
+        hits = np.zeros(d * vocab, np.int64)
+        for _, _, doc, c0, w, s in _b2_rows(p, d, vocab, counts_addr):
+            head, nvec, tail = s["head"], s["nvec"], s["tail"]
+            assert head + 4 * nvec + tail == w and 0 <= tail < 4
+            assert 0 <= head <= 3 and 0 <= s["shift"] <= 3
+            row = doc * vocab + c0
+            if nvec:
+                # the first vector is 16-byte aligned in counts and in the
+                # row buffer (int shift + head of a 16-byte aligned buffer)
+                assert (counts_addr + (row + head) * 4) % 16 == 0
+                assert (s["shift"] + head) % 4 == 0
+            assert s["shift"] + w <= p["vt"] + 4  # inside the row buffer
+            cols = np.arange(w)
+            np.add.at(hits, row + cols, 1)
+        assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("with_df", [True, False])
+def test_tf_df_plan_shared_memory_within_budget(with_df):
+    vocabs = list(range(1, 300)) + [4093, 4095, 4096, 8191, 8193, 40000,
+                                    65521, 1 << 16, 1 << 17]
+    for vocab in vocabs:
+        p = K.tf_df_plan(32768, 256, vocab, with_df=with_df)
+        assert p["smem_bytes"] <= 227 * 1024
+        assert p["smem_bytes"] == 4 * (2 * (p["vt"] + 4)
+                                       + (p["vt"] if with_df else 0))
+        assert 1 <= p["blocks_per_sm"] <= 2048 // 128
+        assert p["blocks_per_sm"] * (p["smem_bytes"] + 1024) <= 228 * 1024
+
+
+def test_tf_df_plan_main_shape():
+    # V 4,096: one tile, four 48 KB blocks an SM, 528 blocks of ~62 docs
+    p = K.tf_df_plan(32768, 256, 4096)
+    assert (p["vt"], p["tiles"], p["blocks_per_sm"], p["blocks"]) == \
+        (4096, 1, 4, 528)
+    # past one tile, the tiles share the card's blocks
+    p = K.tf_df_plan(512, 256, 40000)
+    assert p["tiles"] == 5 and p["blocks"] * p["tiles"] >= 132
+
+
+def test_tf_df_plan_rejects_bad_shapes():
+    for args in ((0, 256, 16), (4, 256, 0), (4, -1, 16)):
+        with pytest.raises(ValueError):
+            K.tf_df_plan(*args)
+    with pytest.raises(ValueError):
+        K.tf_df_plan(4, 256, 16, max_tile=6)
+    with pytest.raises(ValueError):  # two buffers and df past 227 KB
+        K.tf_df_plan(4, 256, 1 << 17, max_tile=1 << 15)
+
+
+def _tf_df_model(toks, lens, vocab, id_offset, with_df, p, counts_addr=0):
+    """csrc/tf_df.cu in numpy: per (tile, block) two row buffers of
+    vt + 4 ints used in turn, column k of a doc's row at int shift + k;
+    shared atomics (the old value 0 adds the doc's first occurrence to
+    the block's DF partial); the row written out by its split; the buffer
+    cleared where the threads read it; the partial added to df at the
+    block's end. Counts start as garbage: every cell must be written."""
+    d, length = toks.shape
+    counts = np.full((d, vocab), -12345, np.int64)
+    df = np.zeros(vocab, np.int64)
+    vt = p["vt"]
+
+    def locals_of(doc, c0, w):
+        n = min(max(int(lens[doc]), 0), length)
+        loc = toks[doc, :n].astype(np.int64) - id_offset - c0
+        return loc[(loc >= 0) & (loc < w)]
+
+    rows_by_block = {}
+    for x, y, doc, c0, w, s in _b2_rows(p, d, vocab, counts_addr):
+        rows_by_block.setdefault((x, y), []).append((doc, c0, w, s))
+    for (x, y), rows in rows_by_block.items():
+        bufs = [np.zeros(vt + 4, np.int64) for _ in range(2)]
+        part = np.zeros(vt, np.int64)
+        for it, (doc, c0, w, s) in enumerate(rows):
+            buf = bufs[it & 1]
+            assert not buf.any(), "a row buffer reused before it was clear"
+            for loc in locals_of(doc, c0, w):
+                old = buf[s["shift"] + loc]
+                buf[s["shift"] + loc] += 1
+                if with_df and old == 0:
+                    part[loc] += 1
+            row = buf[s["shift"]:s["shift"] + w]
+            counts[doc, c0:c0 + w] = row
+            row[:] = 0
+        if with_df:
+            w = min(vt, vocab - y * vt)
+            df[y * vt:y * vt + w] += part[:w]
+    return counts, (df if with_df else None)
+
+
+def _b2_inputs(case, rng):
+    """Small [D, L] ids and lengths for one edge of the kernel."""
+    d, length, vocab = 11, 24, 13
+    toks = rng.integers(0, vocab, (d, length)).astype(np.int32)
+    lens = rng.integers(0, length + 1, d).astype(np.int32)
+    kw = {}
+    if case == "edges":  # zero, negative and over-long lengths
+        lens[:4] = [0, -3, length + 5, 1 << 20]
+    elif case == "out_of_range":
+        toks[::2, ::3] = -1 - rng.integers(0, 100, toks[::2, ::3].shape)
+        toks[1::2, ::5] = vocab + rng.integers(0, 100, toks[1::2, ::5].shape)
+    elif case == "id_offset":
+        toks = rng.integers(0, 3 * vocab, (d, length)).astype(np.int32)
+        kw["id_offset"] = vocab
+    elif case == "uint16":
+        toks = rng.integers(65000, 65536, (d, length)).astype(np.uint16)
+        toks[:, ::4] = rng.integers(0, vocab, toks[:, ::4].shape)
+        kw["id_offset"] = 65500
+    elif case == "zipf":
+        toks = (np.clip(rng.zipf(1.3, (d, length)), 1, 40) - 1).astype(np.int32)
+        vocab = 40
+    elif case == "vocab_1":
+        toks = rng.integers(0, 2, (d, length)).astype(np.int32)
+        vocab = 1
+    return toks, lens, vocab, kw
+
+
+@pytest.mark.parametrize("case", ["random", "edges", "out_of_range",
+                                  "id_offset", "uint16", "zipf", "vocab_1"])
+@pytest.mark.parametrize("with_df", [True, False])
+@pytest.mark.parametrize("max_tile,sms", [(8192, 132), (8, 1), (4, 2)])
+def test_tf_df_block_model_matches_pallas(case, with_df, max_tile, sms):
+    toks, lens, vocab, kw = _b2_inputs(case, np.random.default_rng(7))
+    # The Pallas kernel pads L to its chunk with id 0 and masks only by
+    # pos < len, so a length past L would count that padding; the port's
+    # contract clamps len to L, as the JAX package's XLA histogram does.
+    jc, jd = tf_df_pallas(jnp.asarray(toks),
+                          jnp.asarray(np.minimum(lens, toks.shape[1])),
+                          vocab_size=vocab, with_df=with_df, interpret=True,
+                          **kw)
+    if case == "edges":
+        np.testing.assert_array_equal(
+            np.asarray(jax_tf_counts(jnp.asarray(toks), jnp.asarray(lens),
+                                     vocab)), np.asarray(jc))
+    p = K.tf_df_plan(*toks.shape, vocab, with_df=with_df, sms=sms,
+                     max_tile=max_tile)
+    for counts_addr in (0, 4, 8, 12):
+        mc, md = _tf_df_model(toks, lens, vocab, kw.get("id_offset", 0),
+                              with_df, p, counts_addr)
+        np.testing.assert_array_equal(mc, np.asarray(jc))
+        if with_df:
+            np.testing.assert_array_equal(md, np.asarray(jd))
+    # and the wrapper's plain version agrees
+    tc, td = K.tf_df(torch.from_numpy(toks), torch.from_numpy(lens),
+                     vocab_size=vocab, with_df=with_df, **kw)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    assert (td is None) == (not with_df)
+
+
+# --- B3: the pack kernel's plan -------------------------------------------
+
+def _b3_owned(p, n):
+    """Words each (thread, loop) of the plan writes: groups of 4 from
+    ``head``, the head and tail one at a time."""
+    g = np.arange(p["groups"])
+    words = [(p["head"] + 4 * g[:, None] + np.arange(4)[None, :]).ravel(),
+             np.arange(p["head"]),
+             p["head"] + 4 * p["groups"] + np.arange(p["tail"])]
+    return np.bincount(np.concatenate(words), minlength=n)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("offset_words", [0, 1, 2, 3])
+def test_pack_plan_owns_every_word_once(itemsize, offset_words):
+    """n 1 to 4,099, the three arrays equally far past a boundary."""
+    for n in range(1, 4100):
+        p = K.pack_words_plan(n, itemsize=itemsize,
+                              vals_addr=offset_words * itemsize + 64,
+                              tids_addr=offset_words * 4 + 256,
+                              out_addr=offset_words * 4 + 512)
+        owned = _b3_owned(p, n)
+        assert owned.size == n and (owned == 1).all(), (n, p)
+        assert p["head"] == min((4 - offset_words) % 4, n)
+        assert p["tail"] < 4 and p["groups"] == (n - p["head"]) // 4
+        # every group starts aligned in all three arrays
+        first = offset_words + p["head"]
+        assert p["groups"] == 0 or first % 4 == 0
+        assert p["blocks"] * 256 >= min(max(p["groups"], p["head"], p["tail"]),
+                                        132 * 2048)
+
+
+@pytest.mark.parametrize("addrs,itemsize", [
+    ((0, 4, 0), 4),    # tids one word past the others
+    ((0, 0, 8), 4),    # out two words past
+    ((2, 0, 0), 2),    # 16-bit scores one word past
+    ((6, 0, 0), 4),    # scores not even 4-aligned
+    ((4, 4, 4), 2)])   # scores two words past, tids and out one
+def test_pack_plan_misaligned_pointers_go_one_word_at_a_time(addrs, itemsize):
+    vals_addr, tids_addr, out_addr = addrs
+    for n in (1, 3, 4, 4099, 524288):
+        p = K.pack_words_plan(n, itemsize=itemsize, vals_addr=vals_addr,
+                              tids_addr=tids_addr, out_addr=out_addr)
+        assert (p["head"], p["groups"], p["tail"]) == (n, 0, 0)
+        assert (_b3_owned(p, n) == 1).all()
+
+
+def test_pack_plan_main_shape_is_one_wave():
+    p = K.pack_words_plan(32768 * 16, itemsize=4)
+    assert (p["head"], p["groups"], p["tail"]) == (0, 131072, 0)
+    assert p["blocks"] == 512 <= 132 * 8
+    # a larger n strides within one wave
+    assert K.pack_words_plan(1 << 24)["blocks"] == 132 * 8
+    with pytest.raises(ValueError):
+        K.pack_words_plan(0)

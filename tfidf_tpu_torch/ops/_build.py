@@ -58,10 +58,12 @@ SIGNATURES = {
     # stream
     "tfidf_fused_score_topk": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                _I, _P],
-    # tokens, token_dtype, lengths, counts, df, D, L, V, id_offset, stream
-    "tfidf_tf_df": [_P, _I, _P, _P, _P, _I, _I, _I, _LL, _P],
-    # vals, val_dtype, tids, words, n, stream
-    "tfidf_pack_words": [_P, _I, _P, _P, _LL, _P],
+    # tokens, token_dtype, lengths, counts, df, D, L, V, id_offset, then the
+    # plan (ops/kernels.py tf_df_plan): vt, blocks; stream
+    "tfidf_tf_df": [_P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P],
+    # vals, val_dtype, tids, words, n, then the plan (ops/kernels.py
+    # pack_words_plan): head, groups, blocks; stream
+    "tfidf_pack_words": [_P, _I, _P, _P, _LL, _LL, _LL, _I, _P],
     # flat, flat_dtype, lengths, scratch, out, D, L, align, n_granules, then
     # the plan (ops/kernels.py ragged_rebuild_plan): group, warps; scan,
     # stream

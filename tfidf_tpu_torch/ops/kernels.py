@@ -25,6 +25,7 @@ runs do not count); :func:`reset_launches` zeroes it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -78,6 +79,13 @@ def _check(name: str, what: str, t: torch.Tensor, dtypes, ndim: int) -> None:
 
 def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (for the launch plans
+    that size their grid to what the card holds at once)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(name: str, fn, device: torch.device, *args) -> None:
@@ -180,28 +188,87 @@ def tf_df(token_ids: torch.Tensor, lengths: torch.Tensor, *, vocab_size: int,
                          f"token_ids {tuple(token_ids.shape)}")
     if vocab_size <= 0:
         raise ValueError(f"{name}: vocab_size must be positive")
-    counts = torch.zeros((d, vocab_size), dtype=torch.int32,
-                         device=token_ids.device)
-    df = (torch.zeros(vocab_size, dtype=torch.int32, device=token_ids.device)
-          if with_df else None)
+    dev = token_ids.device
+    counts = torch.empty((d, vocab_size), dtype=torch.int32, device=dev)
+    df = torch.empty(vocab_size, dtype=torch.int32, device=dev) \
+        if with_df else None
     if d == 0:
-        return counts, df
+        return counts, None if df is None else df.zero_()
     tf_df_launch(token_ids, lengths, counts, df, id_offset=id_offset)
     return counts, df
+
+
+_TF_DF_THREADS = 128          # threads per block of csrc/tf_df.cu
+_TF_DF_TILE = 8192            # vocab columns per tile, at most
+_SMEM_PER_BLOCK = 227 * 1024  # the H100's opt-in limit for one block
+_SMEM_PER_SM = 228 * 1024     # an H100 SM's, less 1 KB a block the runtime keeps
+_THREADS_PER_SM = 2048        # resident threads an H100 SM holds
+_H100_SMS = 132
+
+
+def tf_df_plan(d: int, length: int, vocab_size: int, *, with_df: bool = True,
+               sms: int = _H100_SMS, max_tile: int = _TF_DF_TILE
+               ) -> Dict[str, int]:
+    """The launch plan of the TF/DF kernel (csrc/tf_df.cu) for D docs of L
+    slots over a V-word vocab.
+
+    * ``vt``: vocab columns per tile, V rounded up to a multiple of 4, at
+      most ``max_tile``; ``tiles`` = ceil(V / vt) (grid y). Tile t holds
+      columns ``[t * vt, min((t + 1) * vt, V))``.
+    * ``smem_bytes``: two row buffers of ``vt + 4`` ints (the row and its
+      up-to-3-int shift, see :func:`tf_df_row_split`) and, with df, the
+      DF partial of ``vt`` ints; within ``_SMEM_PER_BLOCK``.
+    * ``blocks`` per tile (grid x): as many as the card holds at once
+      (``blocks_per_sm`` by shared memory and threads, times ``sms``),
+      shared among the tiles, at most D. Block x of tile t builds the
+      rows of docs ``x, x + blocks, ...``.
+    """
+    d, length, v = int(d), int(length), int(vocab_size)
+    if d < 1 or length < 0 or v < 1 or max_tile < 4 or max_tile % 4:
+        raise ValueError(f"tf_df_plan: d {d}, length {length}, vocab {v}, "
+                         f"max_tile {max_tile}")
+    vt = min(-(-v // 4) * 4, max_tile)
+    tiles = -(-v // vt)
+    smem = 4 * (2 * (vt + 4) + (vt if with_df else 0))
+    if smem > _SMEM_PER_BLOCK:
+        raise ValueError(f"tf_df_plan: a {vt}-column tile needs {smem} bytes "
+                         f"of shared memory, over {_SMEM_PER_BLOCK}")
+    per_sm = min(_THREADS_PER_SM // _TF_DF_THREADS,
+                 _SMEM_PER_SM // (smem + 1024))
+    blocks = max(1, min(d, -(-sms * per_sm // tiles)))
+    return {"vt": vt, "tiles": tiles, "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "blocks": blocks}
+
+
+def tf_df_row_split(row_addr: int, width: int) -> Dict[str, int]:
+    """How csrc/tf_df.cu writes one (doc, tile) row of ``width`` columns
+    whose first count sits at byte address ``row_addr`` (4-aligned): the
+    row buffer holds column k at int ``shift + k``, ``shift`` the row's
+    misalignment in ints, so a ``head`` of up to 3 scalar columns reaches
+    the first 16-byte boundary, then ``nvec`` 16-byte vectors (aligned in
+    both memories), then a scalar ``tail``."""
+    shift = (row_addr >> 2) & 3
+    head = min((4 - shift) & 3, width)
+    nvec = (width - head) >> 2
+    return {"shift": shift, "head": head, "nvec": nvec,
+            "tail": width - head - 4 * nvec}
 
 
 def tf_df_launch(token_ids: torch.Tensor, lengths: torch.Tensor,
                  counts: torch.Tensor, df: Optional[torch.Tensor], *,
                  id_offset: int = 0) -> None:
-    """:func:`tf_df`'s kernel launch alone: adds into ``counts`` [D, V]
-    and ``df`` [V] (or None), which the caller zeroed. CUDA tensors that
-    :func:`tf_df` has checked; lets a benchmark time the kernel without
-    the fills."""
+    """:func:`tf_df`'s device work: one C call that zeroes ``df`` [V] (or
+    None) and writes every cell of ``counts`` [D, V] (no fill needed),
+    with the plan of :func:`tf_df_plan`. CUDA tensors that :func:`tf_df`
+    has checked, D at least 1."""
     d, length = token_ids.shape
+    v = counts.shape[1]
+    p = tf_df_plan(d, length, v, with_df=df is not None,
+                   sms=_sm_count(counts.device))
     _launch("tf_df", load().tfidf_tf_df, token_ids.device,
             _ptr(token_ids), _TOKEN_CODES[token_ids.dtype], _ptr(lengths),
-            _ptr(counts), _ptr(df), d, length, counts.shape[1],
-            int(id_offset))
+            _ptr(counts), _ptr(df), d, length, v, int(id_offset),
+            p["vt"], p["blocks"])
 
 
 # --- B3: packed result words -----------------------------------------
@@ -244,10 +311,51 @@ def pack_words(vals: torch.Tensor, tids: torch.Tensor,
         words = out
     if words.numel() == 0:
         return words
+    p = pack_words_plan(words.numel(), itemsize=vals.element_size(),
+                        vals_addr=vals.data_ptr(), tids_addr=tids.data_ptr(),
+                        out_addr=words.data_ptr(), sms=_sm_count(vals.device))
     _launch(name, load().tfidf_pack_words, vals.device,
             _ptr(vals), _SCORE_CODES[vals.dtype], _ptr(tids), _ptr(words),
-            words.numel())
+            words.numel(), p["head"], p["groups"], p["blocks"])
     return words
+
+
+_PACK_THREADS = 256  # threads per block of csrc/pack_words.cu
+
+
+def pack_words_plan(n: int, *, itemsize: int = 4, vals_addr: int = 0,
+                    tids_addr: int = 0, out_addr: int = 0,
+                    sms: int = _H100_SMS) -> Dict[str, int]:
+    """The launch plan of the pack kernel (csrc/pack_words.cu) for n
+    words from ``itemsize``-byte scores, given the three byte addresses.
+
+    * ``groups`` of 4 consecutive words from word ``head`` on: word i of
+      a group is aligned in all three arrays (16 bytes for tids and
+      words, 4 x itemsize for the scores). That needs the three addresses
+      to sit equally far, in words, past such a boundary; ``head`` words
+      are packed one at a time up to it. When they differ, every word is
+      packed alone (``head`` = n, ``groups`` 0).
+    * ``tail``: the n - head - 4 * groups words after the last group, one
+      at a time.
+    * ``blocks`` of ``_PACK_THREADS``: a thread a group, at most one wave
+      (``sms`` SMs of ``_THREADS_PER_SM`` threads), striding past it.
+    """
+    n, itemsize = int(n), int(itemsize)
+    if n < 1 or itemsize not in (2, 4):
+        raise ValueError(f"pack_words_plan: n {n}, itemsize {itemsize}")
+    lanes = {(tids_addr % 16, 4), (out_addr % 16, 4),
+             (vals_addr % (4 * itemsize), itemsize)}
+    offsets = {off // size if off % size == 0 else -1 for off, size in lanes}
+    if len(offsets) == 1 and -1 not in offsets:
+        head = min((4 - offsets.pop()) % 4, n)
+        groups = (n - head) // 4
+    else:
+        head, groups = n, 0
+    tail = n - head - 4 * groups
+    work = max(groups, head, tail)
+    wave = sms * (_THREADS_PER_SM // _PACK_THREADS)
+    return {"head": head, "groups": groups, "tail": tail,
+            "blocks": max(1, min(-(-work // _PACK_THREADS), wave))}
 
 
 # --- B4: ragged rebuild -----------------------------------------------
