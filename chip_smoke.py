@@ -98,6 +98,27 @@ Phases, each printed as one JSON line:
    the plain version over the whole output; its times (tfidf Q 64, 256,
    1 and 512, bm25 Q 64 and 256) against ``torch.sparse.mm`` of the tile
    as a CSR matrix (built outside the timed span).
+11. ``path_stream``: ``StreamingTfidf`` over the 131,072 documents in 16
+   ``pack_ragged`` minibatches of 8,192 (L 256, V 2^16, top-16, packed
+   wire): the updates (B4) and scores (B4, B1, B3) timed and counted, the
+   DF equal to the resident ingest's, the words to the port's CPU run;
+   a ``save_state`` after minibatch 7 that a fresh engine restores and
+   finishes to the same DF and words; ``sparse_df``'s share of one
+   update's device span; one dense minibatch at V 4,096 (B2) and
+   ``TfidfVectorizer.fit_transform``'s [8,192, 4,096] matrix (B2), both
+   equal to the CPU; ``cli stream`` over the 32,768-doc directory, then
+   a run killed hard after its 2nd checkpoint and resumed with
+   ``--resume``: the same output bytes.
+12. ``path_segmented``: ``SegmentedIndex.from_corpus`` over the 131,072
+   documents (delta 1,024, compact_at 4), 96 mutation calls of 64 docs
+   (4,096 adds, 1,024 updates, 1,024 deletes), a compaction whenever the
+   index asks, a view and a Q 64 search every 8 calls (B6 every tile);
+   the final searches at Q 1, 64, 256 under tfidf, bm25 and an id_range
+   filter equal ``rebuild_retriever()`` bit for bit and the untiled path;
+   ``save`` then ``restore`` gives the same bits; the same stream on an
+   8,192-doc base gives the same searches on the card and the CPU.
+   Prints mutated docs/s, view-build ms, search ms on a multi-segment
+   view and after the compaction, the pause and B6's launches a search.
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": ...}``.
@@ -139,6 +160,14 @@ RETR_TILE = 4096          # the default doc tile (TFIDF_TPU_QUERY_BLOCK)
 RETR_K = 10
 RETR_QUERIES = 256
 RETR_SMALL = 8192         # path_retrieval: the index built on both devices
+STREAM_BATCH = 8192       # path_stream: 16 minibatches of the ingest corpus
+STREAM_SAVE_AT = 7        # path_stream: save_state after minibatch 7
+STREAM_CLI_KILL = 2       # path_stream: cli stream killed after minibatch 2
+SEG_DELTA = 1024          # path_segmented: delta_docs
+SEG_COMPACT_AT = 4        # path_segmented: compact_at
+SEG_CALL = 64             # path_segmented: docs per mutation call
+SEG_ADDS, SEG_UPDATES, SEG_DELETES = 4096, 1024, 1024
+SEG_VIEW_EVERY = 8        # path_segmented: a view and a search every 8 calls
 # kernel_cases_b6: Q held bit-equal on the tfidf face, and Q timed per face
 B6_CHECKED_Q = (1, 3, 16, 17, 32, 33, 64, 100, 128, 256, 257, 512)
 B6_TIMED_Q = {"tfidf": (64, RETR_QUERIES, 1, 512), "bm25": (64, RETR_QUERIES)}
@@ -1330,6 +1359,456 @@ def path_retrieval(T, K, root, corpus_docs, total):
     return r, cfg, queries
 
 
+# --- path_stream: StreamingTfidf, its checkpoint, the vectorizer, cli stream
+
+# Run as ``python -c KILL_AFTER_SAVES N args...``: the port's CLI, killed
+# hard (exit 137, no clean-up) right after its N-th checkpoint commit.
+KILL_AFTER_SAVES = """
+import os, sys
+sys.path.insert(0, os.getcwd())
+from tfidf_tpu_torch import checkpoint, cli
+real, stop, seen = checkpoint.save_state, int(sys.argv[1]), []
+def save_then_die(*args, **kwargs):
+    out = real(*args, **kwargs)
+    seen.append(1)
+    if len(seen) == stop:
+        os._exit(137)
+    return out
+checkpoint.save_state = save_then_die
+sys.exit(cli.main(sys.argv[2:]))
+"""
+
+
+def _same_words(a, b) -> bool:
+    """Equal top-k words: ids, and the bits of the 16-bit scores."""
+    return (np.array_equal(a[1], b[1])
+            and np.array_equal(np.asarray(a[0], np.float16).view(np.uint16),
+                               np.asarray(b[0], np.float16).view(np.uint16)))
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured (the CLI prints
+    progress lines)."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        result = fn(*args)
+    return result, out.getvalue()
+
+
+def _stream_cfg(T, vocab, **kw):
+    return T.PipelineConfig(vocab_mode=T.VocabMode.HASHED, vocab_size=vocab,
+                            max_doc_len=DOC_LEN, doc_chunk=DOC_LEN, **kw)
+
+
+def path_stream(T, K, root, corpus_docs, ingest_df, total):
+    """StreamingTfidf over the ingest corpus in minibatches through
+    pack_ragged (B4 every update and score; B1 and B3 every score), held
+    against the resident ingest's DF, the port's CPU run and a resume from
+    a checkpoint; one dense minibatch (B2); the vectorizer's [D, V]
+    transform (B2); cli stream killed after a minibatch and resumed."""
+    from tfidf_tpu_torch import checkpoint as ckpt
+    from tfidf_tpu_torch import cli
+    from tfidf_tpu_torch.models import TfidfVectorizer
+    from tfidf_tpu_torch.ops.sparse import sorted_term_counts, sparse_df
+    from tfidf_tpu_torch.pipeline import place_batch
+    from tfidf_tpu_torch.streaming import StreamingTfidf
+
+    n = len(corpus_docs)
+    bsz = STREAM_BATCH
+    cfg = _stream_cfg(T, SPARSE_VOCAB, topk=TOPK)
+    names = [f"doc{i}" for i in range(1, n + 1)]
+    t0 = time.perf_counter()
+    packer = StreamingTfidf(cfg)
+    batches = [packer.pack_ragged(T.Corpus(names=names[s:s + bsz],
+                                           docs=corpus_docs[s:s + bsz]),
+                                  fixed_len=DOC_LEN)
+               for s in range(0, n, bsz)]
+    pack_s = time.perf_counter() - t0
+    nb = len(batches)
+
+    def counted(fn):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        for kernel, c in launches.items():
+            total[kernel] += c
+        return out, wall, launches
+
+    gpu = StreamingTfidf(cfg)
+    _, update_s, upd_launches = counted(
+        lambda: [gpu.update(b) for b in batches])
+    check(upd_launches["ragged_rebuild"] == nb,
+          f"path_stream: update launched B4 {upd_launches['ragged_rebuild']}"
+          f" times, not {nb}")
+    check(gpu.docs_seen == n
+          and np.array_equal(gpu.df(), np.asarray(ingest_df)),
+          "path_stream: streamed DF differs from the resident ingest's")
+    words, score_s, score_launches = counted(
+        lambda: [gpu.score(b) for b in batches])
+    for kernel in ("ragged_rebuild", "fused_score_topk", "pack_words"):
+        check(score_launches[kernel] == nb, f"path_stream: score launched "
+              f"{kernel} {score_launches[kernel]} times, not {nb}")
+    check(all(w[0].shape == (len(b.names), TOPK) and np.isfinite(w[0]).all()
+              for w, b in zip(words, batches)), "path_stream: bad words")
+
+    t0 = time.perf_counter()
+    cpu = StreamingTfidf(cfg, device="cpu")
+    for b in batches:
+        cpu.update(b)
+    cpu_words = [cpu.score(b) for b in batches]
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(cpu.df(), gpu.df()), "path_stream: CPU DF differs")
+    check(all(_same_words(a, b) for a, b in zip(words, cpu_words)),
+          "path_stream: card words differ from the CPU run's")
+
+    # a checkpoint after minibatch STREAM_SAVE_AT, a fresh engine resumes
+    first = StreamingTfidf(cfg)
+    for b in batches[:STREAM_SAVE_AT]:
+        first.update(b)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(root)) as ck:
+        ckpt.save_state(ck, first.state_dict())
+        resumed = StreamingTfidf(cfg)
+        resumed.load_state(ckpt.restore_state(ck))
+    check(resumed.docs_seen == STREAM_SAVE_AT * bsz,
+          f"path_stream: restored docs_seen {resumed.docs_seen}")
+    (_, resume_s, resume_launches) = counted(
+        lambda: [resumed.update(b) for b in batches[STREAM_SAVE_AT:]])
+    check(resumed.docs_seen == n and np.array_equal(resumed.df(), gpu.df()),
+          "path_stream: the resumed DF differs from the uninterrupted run's")
+    check(all(_same_words(resumed.score(b), w)
+              for b, w in zip(batches, words)),
+          "path_stream: the resumed words differ")
+
+    # sparse_df's share of one update's device time (upload included)
+    scratch = StreamingTfidf(cfg)
+    toks, lens = place_batch(batches[0], scratch.device)
+    ids, _, head = sorted_term_counts(toks, lens)
+    update_ms = device_span_ms(lambda: scratch.update(batches[0]))
+    sparse_df_ms = device_span_ms(lambda: sparse_df(ids, head, SPARSE_VOCAB))
+    update_prof = profile_summary(lambda: scratch.update(batches[0]), top_n=8)
+
+    # the dense engine on one minibatch at vocab 4,096 (B2)
+    dcfg = _stream_cfg(T, DENSE_VOCAB, topk=TOPK, engine="dense")
+    dense_gpu = StreamingTfidf(dcfg)
+    db = dense_gpu.pack_ragged(T.Corpus(names=names[:bsz],
+                                        docs=corpus_docs[:bsz]),
+                               fixed_len=DOC_LEN)
+    (dense_words, dense_s, dense_launches) = counted(
+        lambda: (dense_gpu.update(db), dense_gpu.score(db))[1])
+    check(dense_launches["tf_df"] == 2 and dense_launches["pack_words"] == 1,
+          f"path_stream: dense minibatch launches {dense_launches}")
+    dense_cpu = StreamingTfidf(dcfg, device="cpu")
+    dense_cpu.update(db)
+    check(np.array_equal(dense_cpu.df(), dense_gpu.df())
+          and _same_words(dense_cpu.score(db), dense_words),
+          "path_stream: the dense minibatch differs from the CPU run")
+
+    # the vectorizer's [D, V] transform (topk None: B2 in the transform)
+    vcfg = _stream_cfg(T, DENSE_VOCAB)
+    small = T.Corpus(names=names[:bsz], docs=corpus_docs[:bsz])
+    (mat, vec_s, vec_launches) = counted(
+        lambda: TfidfVectorizer(vcfg, batch_docs=bsz).fit_transform(small))
+    check(vec_launches["tf_df"] == 1, f"path_stream: vectorizer launches "
+          f"{vec_launches}")
+    cmat = TfidfVectorizer(vcfg, batch_docs=bsz,
+                           device="cpu").fit_transform(small)
+    check(mat.shape == (bsz, DENSE_VOCAB) and np.isfinite(mat).all()
+          and (mat > 0).any()
+          and np.array_equal(mat.view(np.uint32), cmat.view(np.uint32)),
+          "path_stream: the vectorizer's [D, V] differs from the CPU run")
+    del mat, cmat
+
+    # cli stream over the streaming-ingest directory: uninterrupted, then
+    # killed after minibatch STREAM_CLI_KILL and resumed
+    args = ["stream", "--input", root, "--batch-docs", str(bsz),
+            "--doc-len", str(DOC_LEN), "--vocab-size", str(SPARSE_VOCAB),
+            "--topk", str(TOPK)]
+    n_cli = len(os.listdir(root))
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(root)) as tmp:
+        full, killed_out = (os.path.join(tmp, f) for f in ("a.txt", "b.txt"))
+        ck = os.path.join(tmp, "ck")
+        ((rc, _), cli_s, cli_launches) = counted(
+            lambda: _quiet(cli.main, args + ["--output", full]))
+        check(rc == 0 and cli_launches["fused_score_topk"] > 0
+              and cli_launches["pack_words"] > 0,
+              f"path_stream: cli stream rc {rc}, launches {cli_launches}")
+        t0 = time.perf_counter()
+        killed = subprocess.run(
+            [sys.executable, "-c", KILL_AFTER_SAVES, str(STREAM_CLI_KILL)]
+            + args + ["--output", killed_out, "--checkpoint", ck],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        killed_s = time.perf_counter() - t0
+        check(killed.returncode == 137 and not os.path.exists(killed_out),
+              f"path_stream: the killed run exited {killed.returncode}: "
+              f"{killed.stderr[-2000:]}")
+        check(int(ckpt.restore_state(ck)["docs_seen"])
+              == STREAM_CLI_KILL * bsz, "path_stream: the killed run's "
+              "checkpoint is not at its last committed minibatch")
+        ((rc, said), resumed_s, resumed_launches) = counted(
+            lambda: _quiet(cli.main, args + ["--output", killed_out,
+                                             "--checkpoint", ck, "--resume"]))
+        want = open(full, "rb").read()
+        check(rc == 0 and f"resumed at doc {STREAM_CLI_KILL * bsz}" in said
+              and want and open(killed_out, "rb").read() == want,
+              "path_stream: cli stream killed and resumed differs from the "
+              "uninterrupted run")
+    emit({"phase": "path_stream", "docs": n, "batch_docs": bsz,
+          "minibatches": nb, "doc_len": DOC_LEN, "vocab": SPARSE_VOCAB,
+          "topk": TOPK, "pack_ragged_s": pack_s,
+          "update_s": update_s, "update_docs_per_s": n / update_s,
+          "score_s": score_s, "score_docs_per_s": n / score_s,
+          "update_launches": upd_launches, "score_launches": score_launches,
+          "df_equals_resident_ingest": True, "cpu_run_s": cpu_s,
+          "words_equal_cpu": True,
+          "resume": {"saved_after": STREAM_SAVE_AT, "rest_s": resume_s,
+                     "launches": resume_launches, "df_equal": True,
+                     "words_equal": True},
+          "one_update_device_ms": update_ms, "sparse_df_device_ms": sparse_df_ms,
+          "sparse_df_share_of_update": sparse_df_ms / update_ms,
+          "update_device_profile": update_prof,
+          "dense_minibatch": {"vocab": DENSE_VOCAB, "s": dense_s,
+                              "launches": dense_launches, "equal_cpu": True},
+          "vectorizer": {"docs": bsz, "vocab": DENSE_VOCAB, "s": vec_s,
+                         "launches": vec_launches, "bit_equal_cpu": True},
+          "cli": {"docs": n_cli, "uninterrupted_s": cli_s,
+                  "launches": cli_launches, "killed_after": STREAM_CLI_KILL,
+                  "killed_run_s": killed_s, "resumed_s": resumed_s,
+                  "resumed_launches": resumed_launches,
+                  "bytes_equal": True, "output_bytes": len(want)},
+          "ok": True})
+
+
+# --- path_segmented: SegmentedIndex, mutations, compaction, views --------
+
+SEG_SETTINGS = {"tfidf": {}, "bm25": {"scorer": "bm25"},
+                "tfidf+id_range": {"filter": {"id_range": [0, 65536]}}}
+
+
+def mutation_stream(rng, n_base: int):
+    """The mutation calls of SEG_CALL docs each: SEG_ADDS new docs,
+    SEG_UPDATES of base docs and SEG_DELETES of others, interleaved
+    four adds, an update, a delete."""
+    new = zipf_docs(rng, SEG_ADDS + SEG_UPDATES)
+    perm = rng.permutation(n_base) + 1
+    upd = [f"doc{i}" for i in perm[:SEG_UPDATES]]
+    dele = [f"doc{i}" for i in perm[SEG_UPDATES:SEG_UPDATES + SEG_DELETES]]
+    calls, a, u, d = [], 0, 0, 0
+    for i in range((SEG_ADDS + SEG_UPDATES + SEG_DELETES) // SEG_CALL):
+        kind = i % 6
+        if kind < 4:
+            calls.append(("add", [f"new{j}" for j in range(a, a + SEG_CALL)],
+                          new[a + u:a + u + SEG_CALL]))
+            a += SEG_CALL
+        elif kind == 4:
+            calls.append(("add", upd[u:u + SEG_CALL],
+                          new[a + u:a + u + SEG_CALL]))
+            u += SEG_CALL
+        else:
+            calls.append(("delete", dele[d:d + SEG_CALL], None))
+            d += SEG_CALL
+    return calls
+
+
+def _named(view, res):
+    """A search result as (score bits, names): comparable across row
+    spaces (a view and a rebuild) and devices."""
+    vals, ids = res
+    return (np.asarray(vals, np.float32).view(np.uint32).tolist(),
+            [[view.names[i] if i >= 0 else None for i in row] for row in ids])
+
+
+def replay(idx, calls, queries, measure: bool = False):
+    """Apply the mutation calls, compacting whenever the index asks (the
+    compactor's tick); every SEG_VIEW_EVERY calls build a view and run a
+    Q 64 tfidf search. Returns the named results and what was measured."""
+    out = {"mutate_s": 0.0, "view_ms": [], "search_q64_ms": [],
+           "compactions": [], "seals": 0, "results": []}
+    for i, (kind, names, docs) in enumerate(calls):
+        t0 = time.perf_counter()
+        got = (idx.add_docs(names, docs) if kind == "add"
+               else idx.delete_docs(names))
+        out["mutate_s"] += time.perf_counter() - t0
+        out["seals"] += got.get("sealed", 0)
+        if idx.needs_compaction and measure and "multi_segment" not in out:
+            v = idx.view()
+            out["multi_segment"] = {
+                "segments": v.num_segments,
+                "Q1_ms": host_ms(lambda: v.search(queries[:1], k=RETR_K),
+                                 reps=5, warmup=1),
+                "Q64_ms": host_ms(lambda: v.search(queries[:64], k=RETR_K),
+                                  reps=5, warmup=1)}
+        summary = idx.compact()
+        if summary is not None:
+            out["compactions"].append(summary)
+        if (i + 1) % SEG_VIEW_EVERY == 0:
+            t0 = time.perf_counter()
+            v = idx.view()
+            if idx.device.type == "cuda":
+                torch.cuda.synchronize()
+            out["view_ms"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            res = v.search(queries[:64], k=RETR_K)
+            out["search_q64_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["results"].append(_named(v, res))
+    return out
+
+
+def _oracle_kw(view, oracle, kw):
+    """The rebuild's arguments for a view search: a positional filter
+    picks view rows, so it becomes the rebuild positions of the same
+    live docs."""
+    flt = kw.get("filter")
+    if flt is None:
+        return kw
+    lo, hi = flt["id_range"]
+    live = view._stacked()[2].cpu().numpy()
+    where = {name: i for i, name in enumerate(oracle.names)}
+    ids = [where[view.names[p]] for p in range(lo, min(hi, len(view.names)))
+           if live[p]]
+    return {**kw, "filter": {"ids": ids}}
+
+
+def path_segmented(T, K, corpus_docs, queries, total):
+    """SegmentedIndex over the ingest corpus: a mutation stream with
+    seals and a compaction, views and searches (B6 every tile), every
+    final search equal to rebuild_retriever() bit for bit, tiled equal
+    to untiled, save/restore, and the stream replayed on an 8,192-doc
+    base on the card and the CPU with equal searches."""
+    from tfidf_tpu_torch.index import SegmentedIndex
+
+    n = len(corpus_docs)
+    cfg = _stream_cfg(T, SPARSE_VOCAB)
+    corpus = T.Corpus(names=[f"doc{i}" for i in range(1, n + 1)],
+                      docs=corpus_docs)
+    calls = mutation_stream(np.random.default_rng(SEED + 5), n)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    idx = SegmentedIndex.from_corpus(corpus, cfg, delta_docs=SEG_DELTA,
+                                     compact_at=SEG_COMPACT_AT)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.view()
+    torch.cuda.synchronize()
+    first_view_s = time.perf_counter() - t0
+    run = replay(idx, calls, queries, measure=True)
+    launches = dict(K.LAUNCHES)
+    for kernel, c in launches.items():
+        total[kernel] += c
+    check(launches["tile_scores"] > 0, "path_segmented: B6 never launched")
+    check(len(run["compactions"]) == 1 and run["seals"] >= 4,
+          f"path_segmented: {run['seals']} seals, "
+          f"{len(run['compactions'])} compactions")
+    view = idx.view()
+    check(idx.num_docs == n + SEG_ADDS - SEG_DELETES,
+          f"path_segmented: {idx.num_docs} live docs")
+    after = {"segments": view.num_segments,
+             "Q1_ms": host_ms(lambda: view.search(queries[:1], k=RETR_K),
+                              reps=5, warmup=1),
+             "Q64_ms": host_ms(lambda: view.search(queries[:64], k=RETR_K),
+                               reps=5, warmup=1)}
+    K.reset_launches()
+    view.search(queries[:64], k=RETR_K)
+    b6_per_search = K.LAUNCHES["tile_scores"]
+    total["tile_scores"] += b6_per_search
+    rows = int(view._stacked()[0].shape[0])
+    check(b6_per_search == -(-rows // RETR_TILE),
+          f"path_segmented: {b6_per_search} B6 launches for {rows} rows")
+
+    # every final search equals a from-scratch rebuild, tiled and untiled
+    t0 = time.perf_counter()
+    oracle = idx.rebuild_retriever()
+    rebuild_s = time.perf_counter() - t0
+    final = {}
+    for name, kw in SEG_SETTINGS.items():
+        okw = _oracle_kw(view, oracle, kw)
+        for q in (1, 64, RETR_QUERIES):
+            qs = queries[:q]
+            got = view.search(qs, k=RETR_K, **kw)
+            vals, ids = got
+            check(vals.shape == (q, RETR_K) and np.isfinite(vals).all()
+                  and (ids >= 0).sum() > q * RETR_K // 2,
+                  f"path_segmented {name} Q={q}: malformed result")
+            check(_named(view, got) == _named(oracle, oracle.search(
+                qs, k=RETR_K, **okw)),
+                f"path_segmented {name} Q={q}: differs from the rebuild")
+            with env_vars(TFIDF_TPU_SCORE_TILING="off"):
+                off = view.search(qs, k=RETR_K, **kw)
+            check(_same_search(off, got),
+                  f"path_segmented {name} Q={q}: untiled differs from tiled")
+            final[f"{name}/Q{q}"] = True
+
+    with tempfile.TemporaryDirectory() as snap:
+        t0 = time.perf_counter()
+        idx.save(snap, epoch=1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, meta = SegmentedIndex.restore(snap, cfg)
+        restore_s = time.perf_counter() - t0
+    bview = back.view()
+    for name, kw in SEG_SETTINGS.items():
+        check(_same_search(bview.search(queries[:64], k=RETR_K, **kw),
+                           view.search(queries[:64], k=RETR_K, **kw))
+              and bview.names == view.names,
+              f"path_segmented {name}: restored index differs")
+    del back, bview, oracle, view, idx
+
+    # the same stream on an 8,192-doc base, on the card and on the CPU
+    small = T.Corpus(names=corpus.names[:RETR_SMALL],
+                     docs=corpus_docs[:RETR_SMALL])
+    small_calls = mutation_stream(np.random.default_rng(SEED + 6), RETR_SMALL)
+    K.reset_launches()
+    g = SegmentedIndex.from_corpus(small, cfg, delta_docs=SEG_DELTA,
+                                   compact_at=SEG_COMPACT_AT)
+    grun = replay(g, small_calls, queries)
+    for kernel, c in K.LAUNCHES.items():
+        total[kernel] += c
+    t0 = time.perf_counter()
+    c = SegmentedIndex.from_corpus(small, cfg, delta_docs=SEG_DELTA,
+                                   compact_at=SEG_COMPACT_AT, device="cpu")
+    crun = replay(c, small_calls, queries)
+    cpu_replay_s = time.perf_counter() - t0
+    check(len(grun["results"]) == len(crun["results"]) > 0
+          and grun["results"] == crun["results"],
+          "path_segmented: card and CPU searches differ during the replay")
+    for name, kw in SEG_SETTINGS.items():
+        gv, cv = g.view(), c.view()
+        check(_named(gv, gv.search(queries[:64], k=RETR_K, **kw))
+              == _named(cv, cv.search(queries[:64], k=RETR_K, **kw)),
+              f"path_segmented: card and CPU differ at the end ({name})")
+    emit({"phase": "path_segmented", "docs": n, "doc_len": DOC_LEN,
+          "vocab": SPARSE_VOCAB, "delta_docs": SEG_DELTA,
+          "compact_at": SEG_COMPACT_AT, "calls": len(calls),
+          "docs_per_call": SEG_CALL, "adds": SEG_ADDS,
+          "updates": SEG_UPDATES, "deletes": SEG_DELETES,
+          "from_corpus_s": build_s, "first_view_s": first_view_s,
+          "mutate_s": run["mutate_s"],
+          "mutations_per_s": (SEG_ADDS + SEG_UPDATES + SEG_DELETES)
+          / run["mutate_s"],
+          "seals": run["seals"], "compactions": run["compactions"],
+          "compaction_pause_ms": [x["pause_s"] * 1e3
+                                  for x in run["compactions"]],
+          "view_build_ms": run["view_ms"],
+          "view_build_ms_median": statistics.median(run["view_ms"]),
+          "search_q64_ms_per_view": run["search_q64_ms"],
+          "multi_segment_search": run.get("multi_segment"),
+          "after_compaction_search": after, "launches": launches,
+          "stacked_rows": rows, "b6_launches_per_search": b6_per_search,
+          "rebuild_s": rebuild_s, "final_equal_rebuild": final,
+          "tiled_equals_untiled": True, "save_s": save_s,
+          "restore_s": restore_s, "restored_equal": True,
+          "replay_small": {"base_docs": RETR_SMALL,
+                           "views_compared": len(grun["results"]),
+                           "seals": grun["seals"],
+                           "compactions": len(grun["compactions"]),
+                           "card_mutate_s": grun["mutate_s"],
+                           "cpu_s": cpu_replay_s, "card_equals_cpu": True},
+          "ok": True})
+
+
 def b6_bound(data, cols, q: int):
     """What one tile-scores call needs at this data: data at every slot,
     cols at live slots, the qmat rows of the distinct live columns (Q
@@ -1502,12 +1981,14 @@ def main() -> int:
         emit({"phase": "ingest_corpora", "docs": [INGEST_DOCS, N_DOCS],
               "bytes": [sum(map(len, big_docs)), sum(map(len, corpus.docs))],
               "write_s": time.perf_counter() - t0})
-        path_ingest_resident(T, K, FT, ingest, big, big_docs, total)
+        rg = path_ingest_resident(T, K, FT, ingest, big, big_docs, total)
         path_ingest_streaming(T, K, FT, ingest, small, total)
         r, rcfg, queries = path_retrieval(T, K, big, big_docs, total)
         from tfidf_tpu_torch.models import retrieval as R
         b6_kernel_cases(K, R, r, rcfg, queries, summary)
         del r
+        path_stream(T, K, small, big_docs, rg.df, total)
+        path_segmented(T, K, big_docs, queries, total)
 
     sources = {"fused_score_topk": ("tfidf_tpu_torch/csrc/score_topk.cu",
                                     "tfidf_tpu/ops/pallas_kernels.py:466"),

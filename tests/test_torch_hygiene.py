@@ -54,7 +54,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tfidf_tpu_torch/scoring/family.py",
                  "tfidf_tpu_torch/scoring/filters.py",
                  "tfidf_tpu_torch/checkpoint.py",
-                 "tfidf_tpu_torch/ops/queryslab.py"):
+                 "tfidf_tpu_torch/ops/queryslab.py",
+                 # the streaming and segmented-index slice
+                 "tfidf_tpu_torch/streaming.py",
+                 "tfidf_tpu_torch/models/vectorizer.py",
+                 "tfidf_tpu_torch/index/segment.py",
+                 "tfidf_tpu_torch/index/segmented.py",
+                 "tfidf_tpu_torch/index/compactor.py",
+                 "tfidf_tpu_torch/faults.py",
+                 "tfidf_tpu_torch/obs/tracer.py",
+                 "tfidf_tpu_torch/obs/log.py"):
         assert path in rel
     offenders = []
     for path in files:
@@ -258,6 +267,28 @@ def test_cli_doc_len_without_gpu_raises(no_gpu, toy_corpus_dir, tmp_path):
     assert not out.exists()
 
 
+def test_streaming_and_index_without_gpu_raise(no_gpu, toy_corpus_dir,
+                                               tmp_path, capsys):
+    from tfidf_tpu_torch.index import SegmentedIndex
+    from tfidf_tpu_torch.models import TfidfVectorizer
+    from tfidf_tpu_torch.streaming import StreamingTfidf
+    cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
+    for make in (StreamingTfidf, TfidfVectorizer, SegmentedIndex):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(cfg, device="cuda")
+        assert make(cfg, device="cpu") is not None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SegmentedIndex.from_dir(toy_corpus_dir, cfg)
+    out = tmp_path / "o.txt"
+    args = ["stream", "--input", toy_corpus_dir, "--output", str(out)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
+    assert not out.exists() and capsys.readouterr().out == ""
+    assert cli.main(args + ["--device", "cpu"]) == 0 and out.exists()
+
+
 class TestNotPortedYet:
     def test_mesh(self, toy_corpus_dir):
         pipe = T.TfidfPipeline(T.PipelineConfig(mesh_shape={"docs": 2}),
@@ -282,6 +313,25 @@ class TestNotPortedYet:
         with pytest.raises(TypeError, match="RaggedBatch"):
             T.TfidfPipeline(T.PipelineConfig.golden(),
                             device="cpu").run_packed(RaggedBatch())
+
+    def test_stream_mesh(self, toy_corpus_dir, tmp_path):
+        from tfidf_tpu_torch.models import TfidfVectorizer
+        from tfidf_tpu_torch.streaming import StreamingTfidf
+        cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
+        for make in (StreamingTfidf, TfidfVectorizer):
+            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+                make(cfg, plan=object(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            cli.main(["stream", "--input", toy_corpus_dir, "--output",
+                      str(tmp_path / "o.txt"), "--mesh-docs", "2",
+                      "--device", "cpu"])
+
+    @pytest.mark.parametrize("member", ["MetricsRegistry", "HealthMonitor",
+                                        "DeviceMonitor", "SloTracker"])
+    def test_serving_obs(self, member):
+        from tfidf_tpu_torch import obs
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            getattr(obs, member)
 
     @pytest.mark.parametrize("kw,item", [
         ({"plan": object()}, "ROADMAP A9"),

@@ -1,16 +1,22 @@
-"""Index snapshots on disk (port of ``tfidf_tpu/checkpoint.py``'s index
-half: :func:`save_index`, :func:`restore_index`, :class:`SnapshotMismatch`,
-the single-writer lock and the commit protocol). numpy only.
+"""Checkpoints on disk (port of ``tfidf_tpu/checkpoint.py``): the
+streaming engine's state (:func:`save_state` / :func:`restore_state` /
+:func:`exists`) and index snapshots (:func:`save_index` /
+:func:`restore_index`, :class:`SnapshotMismatch`). numpy only.
 
-The format is the JAX package's, unchanged: each save writes a fresh
-payload directory ``ckpt-<seq>/`` (``index.npz`` + ``meta.json`` with a
-sha256 per array) under the checkpoint root, then atomically repoints
-the ``LATEST`` file at it, then deletes superseded payloads. A crash at
-any instant leaves the old committed snapshot or the new one, never
-neither. So each package restores the other's snapshots.
+One crash-safe protocol serves both, the JAX package's, unchanged: each
+save writes a fresh payload directory ``ckpt-<seq>/`` under the
+checkpoint root, then atomically repoints the ``LATEST`` file at it,
+then deletes superseded payloads. A crash at any instant leaves the old
+committed checkpoint or the new one, never neither. Saves are
+single-writer per root (an advisory flock).
 
-The streaming engine's state checkpoints (``save_state`` /
-``restore_state``) come with ``StreamingTfidf`` (ROADMAP A5b).
+State payloads are a plain ``state.npz``, which the JAX package's
+``restore_state`` reads first. The JAX package writes its state with
+Orbax when Orbax is installed; :func:`restore_state` reads such a
+payload through ``tensorstore`` (the array store under Orbax, no JAX
+inside) when that is installed. Index payloads are ``index.npz`` +
+``meta.json`` with a sha256 per array. So each package restores the
+other's checkpoints.
 """
 
 from __future__ import annotations
@@ -139,6 +145,84 @@ def _commit_payload(path: str, write_payload: Callable[[str], None]
         _fsync_dir(path)  # rename must hit disk before old payload goes
         if old_payload and os.path.isdir(old_payload):
             shutil.rmtree(old_payload, ignore_errors=True)
+
+
+# --- streaming state ---------------------------------------------------
+
+_NPZ_NAME = "state.npz"
+_ORBAX_META = "_METADATA"
+
+
+def save_state(path: str, state: Dict[str, np.ndarray]) -> str:
+    """Persist a streaming state dict under the checkpoint root ``path``.
+
+    The payload is a plain ``state.npz``; returns ``"npz"``. The
+    previous checkpoint stays restorable until the new one is committed.
+    Single-writer per root: a concurrent save on the same ``path``
+    raises ``RuntimeError``; readers only follow the committed pointer.
+    """
+    state = {k: np.asarray(v) for k, v in state.items()}
+
+    def write_payload(payload: str) -> None:
+        os.makedirs(payload)
+        with open(os.path.join(payload, _NPZ_NAME), "wb") as f:
+            np.savez(f, **state)
+            f.flush()
+            os.fsync(f.fileno())
+
+    _commit_payload(path, write_payload)
+    return "npz"
+
+
+def _restore_orbax(payload: str) -> Dict[str, np.ndarray]:
+    """The arrays of a flat Orbax PyTree payload (the JAX package's
+    state checkpoint when Orbax is installed), read with tensorstore."""
+    try:
+        import tensorstore as ts
+    except ImportError:
+        raise FileNotFoundError(
+            f"checkpoint payload {payload} was written by Orbax; reading "
+            f"it needs the tensorstore package") from None
+    with open(os.path.join(payload, _ORBAX_META)) as f:
+        doc = json.load(f)
+    base = os.path.abspath(payload)
+    out = {}
+    for entry in doc["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        if len(keys) != 1:
+            raise ValueError(f"checkpoint payload {payload}: nested key "
+                             f"{keys} in a flat state dict")
+        kv = ({"driver": "ocdbt", "base": f"file://{base}"}
+              if doc.get("use_ocdbt", True) else
+              {"driver": "file", "path": os.path.join(base, keys[0])})
+        spec = {"driver": "zarr3" if doc.get("use_zarr3") else "zarr",
+                "kvstore": kv}
+        if doc.get("use_ocdbt", True):
+            spec["path"] = keys[0]
+        out[keys[0]] = np.asarray(ts.open(spec, open=True).result()
+                                  .read().result())
+    return out
+
+
+def restore_state(path: str) -> Dict[str, np.ndarray]:
+    """Load the committed state dict written by :func:`save_state` (or by
+    the JAX package's, npz or Orbax)."""
+    payload, _ = _committed_payload(path)
+    if payload is None:
+        raise FileNotFoundError(f"no committed checkpoint at {path}")
+    npz_path = os.path.join(payload, _NPZ_NAME)
+    if os.path.exists(npz_path):
+        with np.load(npz_path) as data:
+            return {k: data[k] for k in data.files}
+    if os.path.exists(os.path.join(payload, _ORBAX_META)):
+        return _restore_orbax(payload)
+    raise FileNotFoundError(
+        f"committed payload {payload} holds no state checkpoint")
+
+
+def exists(path: str) -> bool:
+    """True when ``path`` holds a committed, restorable checkpoint."""
+    return _committed_payload(path)[0] is not None
 
 
 # --- index snapshots (round 13) --------------------------------------

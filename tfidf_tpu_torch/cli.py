@@ -1,5 +1,5 @@
-"""Command line of the PyTorch/CUDA port: the ``run`` and ``query``
-subcommands.
+"""Command line of the PyTorch/CUDA port: the ``run``, ``stream`` and
+``query`` subcommands.
 
     python -m tfidf_tpu_torch.cli run --input DIR [--output output.txt]
         [--vocab-mode exact|hashed] [--vocab-size N] [--topk K]
@@ -17,6 +17,19 @@ with ``--doc-len`` goes through the overlapped chunked ingest
 truncated, terms print as ``id:N``), any other run through
 ``TfidfPipeline``.
 
+    python -m tfidf_tpu_torch.cli stream --input DIR [--output output.txt]
+        [--batch-docs N] [--doc-len L] [--vocab-size V] [--topk K]
+        [--checkpoint CK [--resume]] [--no-strict] [--timing]
+        [--trace out.json] [--device cuda|cpu]
+
+streams the directory in minibatches of N documents (``StreamingTfidf``):
+pass 1 folds DF, saving the state to ``--checkpoint`` after every
+minibatch; pass 2 scores every minibatch against the final DF and writes
+the top-k report. ``--resume`` restores the checkpoint and skips the
+``docs_seen`` documents already folded, in discovery order, so a killed
+and resumed run writes the same bytes as an uninterrupted one (and as
+the JAX CLI's ``stream``).
+
     python -m tfidf_tpu_torch.cli query --input DIR --query TEXT
         [--query TEXT ...] [-k K] [--vocab-size N] [--doc-len L]
         [--no-strict] [--device cuda|cpu]
@@ -26,7 +39,7 @@ through the overlapped ingest's chunk step) and prints, per query,
 ``query: <text>`` then one ``  <name>\t<score>`` line per result, as the
 JAX CLI's ``query`` does.
 
-Both run on CUDA unless ``--device cpu`` is given, and fail when no GPU
+Each runs on CUDA unless ``--device cpu`` is given, and fails when no GPU
 is present and no device was named.
 """
 
@@ -90,6 +103,38 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--pack-threads", type=int, default=None,
                      help="host packer threads of the native loader "
                           "(default every core; env TFIDF_TPU_PACK_THREADS)")
+    st = sub.add_parser(
+        "stream",
+        help="stream the corpus in minibatches with checkpoint/resume")
+    st.add_argument("--input", required=True, help="document directory")
+    st.add_argument("--output", default="output.txt",
+                    help="top-k output file")
+    st.add_argument("--batch-docs", type=int, default=256,
+                    help="documents per minibatch")
+    st.add_argument("--doc-len", type=int, default=256,
+                    help="static tokens per document (longer docs are "
+                         "truncated; one shape for the whole stream)")
+    st.add_argument("--vocab-size", type=int, default=1 << 16)
+    st.add_argument("--topk", type=int, default=8)
+    st.add_argument("--mesh-docs", type=int, default=None,
+                    help="shard each minibatch over this many devices "
+                         "(not ported yet: ROADMAP A9)")
+    st.add_argument("--checkpoint", default=None,
+                    help="checkpoint directory; state is saved after "
+                         "every minibatch")
+    st.add_argument("--resume", action="store_true",
+                    help="restore from --checkpoint and skip the "
+                         "documents already folded into the DF state")
+    st.add_argument("--no-strict", action="store_true")
+    st.add_argument("--timing", action="store_true",
+                    help="print per-phase wall-clock (pass1/pass2/emit) "
+                         "and docs/sec to stderr")
+    st.add_argument("--trace", default=None,
+                    help="record spans and write them as Chrome trace "
+                         "JSON to this path (or TFIDF_TPU_TRACE)")
+    st.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
     q = sub.add_parser(
         "query", help="index a corpus and run ranked cosine retrieval")
     q.add_argument("--input", required=True, help="document directory")
@@ -148,6 +193,105 @@ def _write_topk(path: str, result) -> None:
     lines.sort()
     with open(path, "wb") as f:
         f.write(b"".join(line + b"\n" for line in lines))
+
+
+def _run_stream(args) -> int:
+    """Two-pass streaming job: fold DF per minibatch (checkpointing as it
+    goes), then score every minibatch against the corpus-wide DF.
+
+    Resume contract: documents stream in the deterministic discovery
+    order, so ``docs_seen`` from a restored checkpoint is the exact
+    restart position.
+    """
+    import contextlib
+    import types
+
+    import numpy as np
+
+    from tfidf_tpu_torch import checkpoint as ckpt
+    from tfidf_tpu_torch.config import PipelineConfig, VocabMode
+    from tfidf_tpu_torch.ingest import make_chunk_packer
+    from tfidf_tpu_torch.io.corpus import PackedBatch, discover_names
+    from tfidf_tpu_torch.pipeline import _host
+    from tfidf_tpu_torch.streaming import StreamingTfidf
+    from tfidf_tpu_torch.utils.timing import PhaseTimer
+
+    if args.mesh_docs is not None:
+        raise NotImplementedError(
+            "stream --mesh-docs (the docs-sharded stream) is not ported "
+            "yet: ROADMAP A9")
+    cfg = PipelineConfig(vocab_mode=VocabMode.HASHED,
+                         vocab_size=args.vocab_size, topk=args.topk,
+                         max_doc_len=args.doc_len, doc_chunk=args.doc_len)
+    stream = StreamingTfidf(cfg, device=args.device)
+    names = discover_names(args.input, strict=not args.no_strict)
+    if not names:
+        sys.stderr.write(f"error: no documents in {args.input}\n")
+        return 1
+
+    start = 0
+    if args.resume and args.checkpoint and ckpt.exists(args.checkpoint):
+        stream.load_state(ckpt.restore_state(args.checkpoint))
+        start = stream.docs_seen
+        print(f"resumed at doc {start} ({args.checkpoint})")
+
+    # Minibatches come off the native parallel loader when it builds
+    # (uint16 ids), else the Python pack path: the ingest's packer. Every
+    # batch is padded to batch_docs x doc_len.
+    packer = make_chunk_packer(args.input, cfg, args.batch_docs,
+                               args.doc_len)
+
+    def batches(from_doc: int):
+        for lo in range(from_doc, len(names), args.batch_docs):
+            batch_names = names[lo:lo + args.batch_docs]
+            token_ids, lengths = packer(batch_names)
+            # PackedBatch invariant: one name per row, '' for padding.
+            padded = batch_names + [""] * (token_ids.shape[0]
+                                           - len(batch_names))
+            yield PackedBatch(
+                token_ids=token_ids, lengths=lengths,
+                num_docs=len(batch_names), names=padded,
+                vocab_size=cfg.vocab_size, id_to_word=None)
+
+    timer = PhaseTimer() if args.timing else None
+
+    def phase(name):
+        return timer.phase(name) if timer else contextlib.nullcontext()
+
+    # Pass 1: fold DF, checkpoint after every minibatch.
+    with phase("pass1_df"):
+        for batch in batches(start):
+            stream.update(batch)
+            if args.checkpoint:
+                ckpt.save_state(args.checkpoint, stream.state_dict())
+    print(f"df folded over {stream.docs_seen} docs")
+
+    # Pass 2: score all minibatches against the final DF snapshot.
+    all_names: List[str] = []
+    all_vals, all_ids = [], []
+    with phase("pass2_score"):
+        for batch in batches(0):
+            vals, ids = stream.score(batch)
+            if not isinstance(vals, np.ndarray):  # the pair wire
+                vals, ids = _host(vals), _host(ids)
+            all_names.extend(batch.names[:batch.num_docs])
+            all_vals.append(vals[:batch.num_docs])
+            all_ids.append(ids[:batch.num_docs])
+    report = types.SimpleNamespace(
+        num_docs=len(all_names), names=all_names,
+        topk_vals=np.concatenate(all_vals), topk_ids=np.concatenate(all_ids),
+        id_to_word={})
+    with phase("emit"):
+        _write_topk(args.output, report)  # same format as `run --topk`
+    if timer is not None:
+        acc = timer.as_dict()
+        total = sum(acc.values()) or 1.0
+        rows = [f"{n:>12}: {s * 1e3:9.1f} ms ({100 * s / total:4.1f}%)"
+                for n, s in acc.items()]
+        sys.stderr.write("\n".join(rows) + f"\n{'docs/sec':>12}: "
+                         f"{len(all_names) / total:9.1f}\n")
+    print(f"wrote {args.output} ({stream.docs_seen} docs)")
+    return 0
 
 
 def _overlapped(args, cfg) -> Optional[bool]:
@@ -237,7 +381,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
     if args.cmd == "query":
         return _run_query(args)
-    return _run(args)
+    if args.cmd == "run":
+        return _run(args)
+    # Arm the span tracer (--trace / TFIDF_TPU_TRACE; a no-op when neither
+    # is set) and export what was recorded on any exit.
+    from tfidf_tpu_torch import obs
+    obs.configure(args.trace)
+    try:
+        return _run_stream(args)
+    finally:
+        path = obs.export()
+        if path:
+            sys.stderr.write(f"trace written to {path} (Chrome trace "
+                             f"JSON: open in Perfetto)\n")
 
 
 if __name__ == "__main__":

@@ -19,9 +19,11 @@ Entry points run on CUDA unless the caller names another device
 (``TfidfRetriever(cfg, device="cpu")``, ``restore(path, device="cpu")``);
 with no GPU and no device named they raise. Not in this module: the
 docs-sharded mesh search (``plan=`` raises naming ROADMAP A9), and the
-JAX package's telemetry around search (``obs`` spans, ``devmon``
-compile notes, jit cache sizes), which comes with the server (ROADMAP
-A8): the port compiles no programs, so it has none to count.
+JAX package's telemetry around a retriever's search (its ``score_tile``
+and ``h2d`` spans, ``devmon`` compile notes, jit cache sizes), which
+comes with the server (ROADMAP A8): the port compiles no programs, so it
+has none to count. (``index.IndexView.search`` opens its ``score_tile``
+span already.)
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Row-sparse term-document scoring (port of ``tfidf_tpu/ops/sparse.py``
-:34-316, ``to_bcoo`` :336, the tiled retrieval half :374-509 and
+:34-316 with the host mirror ``sorted_term_counts_host`` :65, ``to_bcoo``
+:336, the tiled retrieval half :374-509 and
 ``sparse_forward`` :519).
 
 Per document, a padded list of (term id, count) pairs is derived by sort
@@ -52,6 +53,29 @@ def sorted_term_counts_masked(token_ids: torch.Tensor, valid: torch.Tensor
     each row's prefix wherever the mask's holes were."""
     return _sorted_counts_core(token_ids.to(torch.int32), valid,
                                valid.sum(dim=1, dtype=torch.int32))
+
+
+def sorted_term_counts_host(token_ids, lengths):
+    """Numpy mirror of :func:`sorted_term_counts`, equal to it bit for
+    bit (integer sort, compare and cumulative ops only). The segmented
+    index derives each mutation's triples on the host with it."""
+    token_ids = np.asarray(token_ids, np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    d, length = token_ids.shape
+    pos = np.arange(length, dtype=np.int32)[None, :]
+    live = pos < lengths[:, None]
+    sorted_ids = np.sort(
+        np.where(live, token_ids, INT32_MAX), axis=1).astype(np.int32)
+    prev = np.concatenate(
+        [np.full((d, 1), -1, np.int32), sorted_ids[:, :-1]], axis=1)
+    head = live & (sorted_ids != prev)
+    hpos = np.where(head, pos, length).astype(np.int32)
+    suffix_min = np.minimum.accumulate(hpos[:, ::-1], axis=1)[:, ::-1]
+    next_head = np.concatenate(
+        [suffix_min[:, 1:], np.full((d, 1), length, np.int32)], axis=1)
+    counts = (np.minimum(next_head, lengths[:, None]) - pos).astype(
+        np.int32)
+    return sorted_ids, counts, head
 
 
 def _sorted_counts_core(token_ids, valid, lengths):

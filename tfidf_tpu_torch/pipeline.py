@@ -98,6 +98,25 @@ class PipelineResult:
         return to_output_bytes(self.output_lines())
 
 
+def place_batch(batch: Batch, device: torch.device):
+    """Device placement of either wire -> (token_ids [D, L], lengths [D]).
+    A PackedBatch ships the padded [D, L] ids; a RaggedBatch ships its
+    flat aligned stream (bytes scale with real tokens) and the padded
+    batch is rebuilt on the device (``ops.kernels.ragged_rebuild``)."""
+    if not isinstance(batch, (PackedBatch, RaggedBatch)):
+        raise TypeError(f"{type(batch).__name__} input: run_packed takes "
+                        f"a PackedBatch or a RaggedBatch")
+    lens = torch.from_numpy(
+        np.asarray(batch.lengths, dtype=np.int32)).to(device)
+    if isinstance(batch, RaggedBatch):
+        flat = torch.from_numpy(np.ascontiguousarray(batch.flat))
+        return ragged_rebuild(flat.to(device), lens, length=batch.length,
+                              align=batch.align), lens
+    # uint16 wire ids widen here; a sliced batch becomes contiguous
+    toks = np.ascontiguousarray(batch.token_ids, dtype=np.int32)
+    return torch.from_numpy(toks).to(device), lens
+
+
 def _forward(token_ids: torch.Tensor, lengths: torch.Tensor, num_docs: int, *,
              vocab_size: int, score_dtype, topk: Optional[int]):
     """Dense engine: tokens -> (counts, df, scores), or (df, vals, ids)
@@ -144,26 +163,6 @@ class TfidfPipeline(PhaseTimedMixin):
                 "mesh_shape runs (the JAX package's ShardedPipeline) are "
                 "not ported yet: ROADMAP A9")
 
-    def _place(self, batch: Batch):
-        """Device placement of either wire. A PackedBatch ships the padded
-        [D, L] ids; a RaggedBatch ships its flat aligned stream (bytes
-        scale with real tokens) and the padded batch is rebuilt on the
-        device (``ops.kernels.ragged_rebuild``)."""
-        if not isinstance(batch, (PackedBatch, RaggedBatch)):
-            raise TypeError(f"{type(batch).__name__} input: run_packed takes "
-                            f"a PackedBatch or a RaggedBatch")
-        lens = torch.from_numpy(
-            np.asarray(batch.lengths, dtype=np.int32)).to(self.device)
-        if isinstance(batch, RaggedBatch):
-            flat = torch.from_numpy(np.ascontiguousarray(batch.flat))
-            return ragged_rebuild(flat.to(self.device), lens,
-                                  length=batch.length,
-                                  align=batch.align), lens
-        toks = np.asarray(batch.token_ids)
-        if toks.dtype != np.int32:
-            toks = toks.astype(np.int32)  # uint16 wire ids widen here
-        return torch.from_numpy(toks).to(self.device), lens
-
     def _fetch_topk(self, df, tv, ti, vocab_size: int):
         """Fetch (df, top-k): on the packed wire the [D, K] selection
         crosses as uint32 words packed on the device (ids exact, scores
@@ -181,7 +180,7 @@ class TfidfPipeline(PhaseTimedMixin):
         if cfg.engine == "sparse":
             return self._run_sparse(batch)
         with self._phase("transfer"):
-            toks, lens = self._place(batch)
+            toks, lens = place_batch(batch, self.device)
         with self._phase("compute"):
             out = _forward(toks, lens, batch.num_docs,
                            vocab_size=batch.vocab_size,
@@ -210,7 +209,7 @@ class TfidfPipeline(PhaseTimedMixin):
         """Row-sparse engine: O(D x L) memory, no [D, V] matrix."""
         cfg = self.config
         with self._phase("transfer"):
-            toks, lens = self._place(batch)
+            toks, lens = place_batch(batch, self.device)
         with self._phase("compute"):
             out = sparse_forward(
                 toks, lens, batch.num_docs, vocab_size=batch.vocab_size,
