@@ -119,9 +119,37 @@ Phases, each printed as one JSON line:
    8,192-doc base gives the same searches on the card and the CPU.
    Prints mutated docs/s, view-build ms, search ms on a multi-segment
    view and after the compaction, the pause and B6's launches a search.
-
-Then the ``kernels`` summary line, the card's name and power limit as
-``nvidia-smi`` prints them, and last ``{"ok": true, "device": ...}``.
+13. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
+   131,072-doc index at ``ServeConfig`` defaults (max_batch 256), warmed
+   over every query bucket, under 8 client threads of 32 requests each
+   (1-4 of the Zipf queries, k 10, tfidf / bm25 / tfidf + id_range in
+   turn), at pipeline depth 1 and then 2: every answer equals a direct
+   ``search`` bit for bit, B6 launched on the served batches, no native
+   build after the warm-up; prints request latency p50/p99, queries/s,
+   batches, mean occupancy and cache hits per depth, and where a depth-1
+   load's time goes: the load once more under torch.profiler with every
+   thread's host ops recorded, the batcher's waits, its searches and in
+   them the ``fill_query_matrix`` calls, torch and runtime calls and
+   device waits (it runs last of the script's profiles: after it, the
+   profiler of the process loses records, which a probe reads). No
+   ``tfidf-*`` thread outlives a server's ``close()``. A repeated
+   request is a cache hit with the same bits; a submit past
+   ``queue_depth`` raises ``Overloaded``; ``swap_index`` to the
+   32,768-doc directory (indexed with B4) bumps the epoch and the next
+   answers equal that index's search. A segmented server (delta 1,024)
+   over the 32,768 docs takes 4 ``add_docs`` calls of 64 docs and one
+   ``delete_docs``, each later answer equal to
+   ``rebuild_retriever().search``; its launches are counted around the
+   server's calls alone. ``DeviceMonitor``
+   reads the card's allocator (bytes in use > 0) and its census finds
+   the resident index's bytes exactly. ``python -m tfidf_tpu_torch.cli
+   serve`` over the 32,768-doc directory in a subprocess, without
+   ``--device``: 16 query lines then ``healthz``, ``readyz``,
+   ``metrics``, ``devmon`` and ``shutdown``; it exits 0, its names and
+   scores equal the library's search and its backend is ``cuda``.
+Then the run's seconds (``run_time``), the ``kernels`` summary line, the
+card's name and power limit as ``nvidia-smi`` prints them, and last
+``{"ok": true, "device": ...}``.
 Any failed check raises: the script exits non-zero without the last
 line. It needs a CUDA device and the repository beside it.
 """
@@ -135,6 +163,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -228,25 +257,41 @@ def device_span_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, warm_up: bool = True):
-    """Device activity of one ``fn()`` call (after one warm-up call, or
-    none), from torch.profiler: ``(name, ms)`` per kernel, copy or memset,
-    plus the wall milliseconds of the window."""
-    from torch.autograd import DeviceType
+def profiled(fn, all_threads: bool = False):
+    """``fn()`` under torch.profiler, CPU and CUDA activity: its events
+    and the wall milliseconds of the window. The host ops recorded are
+    the calling thread's, or with ``all_threads`` every thread's
+    (``profile_all_threads``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    if warm_up:
-        fn()
+    kw = {}
+    if all_threads:
+        from torch._C._profiler import _ExperimentalConfig
+        kw["experimental_config"] = _ExperimentalConfig(
+            profile_all_threads=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **kw) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [(e.name, e.time_range.elapsed_us() / 1e3)
-              for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(events), "the profiler recorded no device activity")
-    return events, wall_ms
+    return prof.events(), wall_ms
+
+
+def device_events(fn, warm_up: bool = True, all_threads: bool = False):
+    """Device activity of one ``fn()`` call (after one warm-up call, or
+    none), from torch.profiler: ``(name, ms)`` per kernel, copy or memset,
+    the wall milliseconds of the window and every profiled event."""
+    from torch.autograd import DeviceType
+
+    if warm_up:
+        fn()
+    events, wall_ms = profiled(fn, all_threads)
+    device = [(e.name, e.time_range.elapsed_us() / 1e3)
+              for e in events if e.device_type == DeviceType.CUDA]
+    check(bool(device), "the profiler recorded no device activity")
+    return device, wall_ms, events
 
 
 def kernel_times(call, plain, library=None, kernel_only=None) -> dict:
@@ -261,10 +306,13 @@ def kernel_times(call, plain, library=None, kernel_only=None) -> dict:
             "library_ms": device_span_ms(library) if library else None}
 
 
-def profile_summary(fn, top_n: int = 12, warm_up: bool = True) -> dict:
+def profile_summary(fn, top_n: int = 12, warm_up: bool = True,
+                    all_threads: bool = False) -> dict:
     """Where the device time of one warm ``fn()`` goes: top device
-    operations and the idle share of the window."""
-    events, wall_ms = device_events(fn, warm_up)
+    operations and the idle share of the window. With ``all_threads``,
+    also the host side of the thread with the most torch ops
+    (``dispatch_thread``)."""
+    events, wall_ms, every = device_events(fn, warm_up, all_threads)
     by_name = {}
     for ev, ms in events:
         row = by_name.setdefault(ev, [0, 0.0])
@@ -272,10 +320,52 @@ def profile_summary(fn, top_n: int = 12, warm_up: bool = True) -> dict:
         row[1] += ms
     busy = sum(ms for _, ms in events)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": 1 - busy / wall_ms,
-            "top": [{"name": n[:100], "count": c, "ms": ms}
-                    for n, (c, ms) in top]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms,
+           "top": [{"name": n[:100], "count": c, "ms": ms}
+                   for n, (c, ms) in top]}
+    if all_threads:
+        out["dispatch_thread"] = dispatch_thread_host(every)
+    return out
+
+
+def dispatch_thread_host(events) -> dict:
+    """The host side of the thread with the most recorded torch ops
+    among ``events`` (the batcher's, in a served load): its ms inside
+    top-level torch ops (their nested runtime calls included), the ms of
+    runtime calls made outside any op (the hand kernels' launches,
+    event records and waits; the profiler files these under no thread
+    of their own), the ms of those two spent waiting for the device
+    (``cuda*Synchronize``), and the runtime calls by name (count, ms)."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+    ops = {}
+    for e in host:
+        if not e.name.startswith("cuda"):
+            ops.setdefault(e.thread, []).append(e)
+    check(bool(ops), "the profiler recorded no host op")
+    tid = max(ops, key=lambda t: len(ops[t]))
+    top = [e for e in ops[tid] if e.cpu_parent is None]
+    loose = [e for e in host
+             if e.name.startswith("cuda") and e.cpu_parent is None]
+    calls = {}
+    for e in host:
+        if e.name.startswith("cuda"):
+            row = calls.setdefault(e.name, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us() / 1e3
+    return {"threads_with_ops": len(ops), "top_level_ops": len(top),
+            "top_level_ops_ms": sum(e.time_range.elapsed_us()
+                                    for e in top) / 1e3,
+            "runtime_calls_outside_ops": len(loose),
+            "runtime_outside_ops_ms": sum(e.time_range.elapsed_us()
+                                          for e in loose) / 1e3,
+            "sync_ms": sum(ms for name, (_, ms) in calls.items()
+                           if name.endswith("Synchronize")),
+            "runtime_calls": {name: {"count": c, "ms": ms} for name, (c, ms)
+                              in sorted(calls.items(),
+                                        key=lambda kv: -kv[1][1])}}
 
 
 def bound_ms(nbytes: int) -> float:
@@ -1166,24 +1256,29 @@ def b6_tile_times(K, r, queries) -> dict:
 
 
 @contextlib.contextmanager
-def timed_fills(R):
-    """Inside the block, every call of the retrieval module's
-    ``fill_query_matrix`` appends its host ms to the yielded list."""
-    real = R.fill_query_matrix
-    fills = []
+def timed_calls(owner, name: str):
+    """Inside the block, every call of ``owner.<name>`` (a module's
+    function or an object's method) appends its host ms to the yielded
+    list."""
+    real = getattr(owner, name)
+    own = name in vars(owner)
+    calls = []
 
-    def timed_fill(*args, **kwargs):
+    def timed(*args, **kwargs):
         t0 = time.perf_counter()
         try:
             return real(*args, **kwargs)
         finally:
-            fills.append((time.perf_counter() - t0) * 1e3)
+            calls.append((time.perf_counter() - t0) * 1e3)
 
-    R.fill_query_matrix = timed_fill
+    setattr(owner, name, timed)
     try:
-        yield fills
+        yield calls
     finally:
-        R.fill_query_matrix = real
+        if own:
+            setattr(owner, name, real)
+        else:
+            delattr(owner, name)  # the class's method again
 
 
 def search_split(R, r, queries, settings, rounds: int = 4) -> dict:
@@ -1196,7 +1291,7 @@ def search_split(R, r, queries, settings, rounds: int = 4) -> dict:
     top device operations."""
     rows = {name: [] for name in settings}
     tops = {}
-    with timed_fills(R) as fills:
+    with timed_calls(R, "fill_query_matrix") as fills:
         for rnd in range(rounds):
             order = list(settings.items())
             for place, (name, kw) in enumerate(order[::-1] if rnd % 2
@@ -1281,7 +1376,7 @@ def path_retrieval(T, K, root, corpus_docs, total):
                       "filter let a row past 65,536 through")
             results[name, q] = res
             launches_per_search[f"{name}/Q{q}"] = launches["tile_scores"]
-            with timed_fills(R) as fills:
+            with timed_calls(R, "fill_query_matrix") as fills:
                 ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw))
             # one fill a search: the median of the loop's calls, warm-ups in
             latency[f"{name}/Q{q}"] = {"ms": ms, "qps": q / ms * 1e3,
@@ -1809,6 +1904,408 @@ def path_segmented(T, K, corpus_docs, queries, total):
           "ok": True})
 
 
+# --- path_serve: TfidfServer over the retrieval index, cli serve ------
+
+SERVE_THREADS = 8         # path_serve: client threads
+SERVE_REQUESTS = 32       # path_serve: requests per client thread
+SERVE_MIX = ({}, {"scorer": "bm25"}, {"filter": {"id_range": [0, 65536]}})
+SERVE_SEG_CALLS = 4       # path_serve: add_docs calls of SEG_CALL docs
+SERVE_CLI_QUERIES = 16    # path_serve: query lines sent to cli serve
+
+
+def serve_requests(rng, queries):
+    """SERVE_THREADS x SERVE_REQUESTS requests: 1-4 of the Zipf queries
+    each, the mix of SERVE_MIX in turn."""
+    out = []
+    for t in range(SERVE_THREADS):
+        reqs = []
+        for i in range(SERVE_REQUESTS):
+            n = int(rng.integers(1, 5))
+            qs = [queries[j] for j in rng.integers(0, len(queries), n)]
+            reqs.append((qs, SERVE_MIX[(t + i) % len(SERVE_MIX)]))
+        out.append(reqs)
+    return out
+
+
+def serve_load(srv, requests):
+    """Every client thread submits its requests one after another and
+    waits for each answer. Returns the answers, each request's host
+    latency in ms and the wall seconds of the load."""
+    answers = [[None] * len(reqs) for reqs in requests]
+    lat_ms = []
+    errors = []
+    lock = threading.Lock()
+
+    def client(t):
+        try:
+            for i, (qs, kw) in enumerate(requests[t]):
+                t0 = time.perf_counter()
+                answers[t][i] = srv.submit(qs, RETR_K, **kw).result(
+                    timeout=300)
+                with lock:
+                    lat_ms.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(len(requests))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"path_serve: a client failed: {errors[:3]}")
+    return answers, lat_ms, wall
+
+
+def serve_figures(srv, lat_ms, wall, n_requests, n_queries, launches):
+    snap = srv.metrics_snapshot()
+    return {"requests": n_requests, "queries": n_queries, "wall_s": wall,
+            "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+            "latency_ms_p99": float(np.percentile(lat_ms, 99)),
+            "requests_per_s": n_requests / wall,
+            "queries_per_s": n_queries / wall,
+            "batches": snap["batch"]["count"],
+            "mean_occupancy": snap["batch"]["mean_occupancy"],
+            "cache_hits": snap["cache"]["hits"],
+            "cache_misses": snap["cache"]["misses"],
+            "server_latency_s": {key: v for key, v in
+                                 snap["latency_s"].items()
+                                 if key != "exemplars"},
+            "b6_launches": launches["tile_scores"]}
+
+
+def check_serve_threads_gone(what: str) -> None:
+    """No thread of a closed server (batcher, drain, health watchdog,
+    device monitor, canary, compactor: all named ``tfidf-*``) lives on."""
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("tfidf-")]
+    check(not alive, f"path_serve: {what}: threads alive after close(): "
+          f"{alive}")
+
+
+def serve_breakdown(r, requests) -> dict:
+    """Where a served load's time goes: the load once more at depth 1
+    on a fresh server, under the profiler with every thread's host ops
+    recorded. The batcher's thread spends the wall waiting for a batch
+    to fall due (``_take_batch``: idle, or inside ``max_wait_ms``), in
+    ``search`` (the query fill, torch calls and runtime calls, and
+    their Python), or between the two (forming, delivering). Its first
+    wait began with the server, before the profiler, and is left out
+    (the few ms until the first batch falls due). The profiler's own
+    cost per recorded op is inside these figures."""
+    from tfidf_tpu_torch.config import ServeConfig
+    from tfidf_tpu_torch.models import retrieval as R
+    from tfidf_tpu_torch.serve import TfidfServer
+    from tfidf_tpu_torch.serve.batcher import MicroBatcher
+
+    with timed_calls(MicroBatcher, "_take_batch") as waits:
+        srv = TfidfServer(r, ServeConfig(pipeline_depth=1))
+        try:
+            with timed_calls(R, "fill_query_matrix") as fills, \
+                    timed_calls(r, "search") as searches:
+                prof = profile_summary(lambda: serve_load(srv, requests),
+                                       top_n=6, warm_up=False,
+                                       all_threads=True)
+                calls = waits[1:]  # the first began before the window
+            batches = srv.metrics_snapshot()["batch"]["count"]
+        finally:
+            srv.close()
+    check_serve_threads_gone("the profiled server")
+    # A probe after the load: how many of one small call's 3 device
+    # records the profiler keeps. A reading, not a check: after a
+    # session of this size every later session of the process loses a
+    # few records (tools/serve_profile_probe.py shows it in a fresh
+    # process), all of a call this small, so path_serve runs last.
+    from torch.autograd import DeviceType
+    probe = [e for e in profiled(
+        lambda: torch.ones(1 << 20, device="cuda").sum())[0]
+        if e.device_type == DeviceType.CUDA]
+    host = prof["dispatch_thread"]
+    calls_ms = host["top_level_ops_ms"] + host["runtime_outside_ops_ms"]
+    wall = prof["wall_ms"]
+    parts = {"batch_wait_ms": sum(calls),
+             "search_ms": sum(searches),
+             "fill_ms": sum(fills),
+             "torch_and_runtime_calls_ms": calls_ms - host["sync_ms"],
+             "device_wait_ms": host["sync_ms"]}
+    parts["python_in_search_ms"] = (parts["search_ms"] - parts["fill_ms"]
+                                    - calls_ms)
+    parts["outside_wait_and_search_ms"] = (wall - parts["batch_wait_ms"]
+                                           - parts["search_ms"])
+    return {"wall_ms": wall, "batches": batches, "searches": len(searches),
+            "batch_waits": len(calls), **parts,
+            "shares": {key[:-3]: ms / wall for key, ms in parts.items()},
+            "per_batch_ms": {key[:-3]: ms / max(batches, 1)
+                             for key, ms in parts.items()},
+            "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"], "top": prof["top"],
+            "dispatch_thread": host,
+            "probe_after_load_device_events": len(probe)}
+
+
+def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total):
+    """TfidfServer over the retrieval index under concurrent load at
+    pipeline depth 1 and 2 (every answer equal to a direct search),
+    the cache, admission and a swap to the 32,768-doc directory (B4), a
+    segmented server under add_docs/delete_docs equal to a rebuild, the
+    device monitor on the card, and cli serve in a subprocess."""
+    from tfidf_tpu_torch.config import ServeConfig
+    from tfidf_tpu_torch.index import SegmentedIndex
+    from tfidf_tpu_torch.obs import devmon
+    from tfidf_tpu_torch.parity import compare_search
+    from tfidf_tpu_torch.serve import Overloaded, TfidfServer
+
+    t_phase = time.perf_counter()
+    n = r._num_docs
+    requests = serve_requests(np.random.default_rng(SEED + 7), queries)
+    n_requests = sum(len(x) for x in requests)
+    n_queries = sum(len(qs) for reqs in requests for qs, _ in reqs)
+    out = {}
+    answers_by_depth = {}
+    for depth in (1, 2):
+        srv = TfidfServer(r, ServeConfig(pipeline_depth=depth))
+        try:
+            if depth == 1:
+                # the CLI's warm-up: every query bucket, then mark_warm
+                b = 1
+                while b <= srv.config.max_batch:
+                    r.search([""] * b, k=RETR_K)
+                    b *= 2
+                srv.mark_warm()
+            K.reset_launches()
+            torch.cuda.synchronize()
+            answers, lat_ms, wall = serve_load(srv, requests)
+            launches = dict(K.LAUNCHES)
+            for kernel, c in launches.items():
+                total[kernel] += c
+            check(launches["tile_scores"] > 0,
+                  f"path_serve depth {depth}: B6 never launched")
+            out[f"depth{depth}"] = serve_figures(
+                srv, lat_ms, wall, n_requests, n_queries, launches)
+            answers_by_depth[depth] = answers
+            if depth == 1:
+                watch = srv.compile_watch
+                recompiles = watch.recompile_count
+                out["builds_seen_by_watch"] = watch.compiles
+                # step 3: the cache, then a device-memory read
+                qs, kw = requests[0][0]
+                hits0 = srv.metrics_snapshot()["cache"]["hits"]
+                again = srv.submit(qs, RETR_K, **kw).result(timeout=300)
+                check(srv.metrics_snapshot()["cache"]["hits"]
+                      == hits0 + len(qs), "path_serve: a repeat missed "
+                      "the cache")
+                check(_same_search(again, answers[0][0]),
+                      "path_serve: a cache hit differs from the first answer")
+                mon = devmon.DeviceMonitor(registry=srv.metrics.registry,
+                                           device=r.device)
+                srv.attach_device_monitor(mon)
+                dev = mon.sample()
+                census = mon.census()
+                mine = [r._ids, r._weights, r._head, r._idf]
+                want_bytes = sum(t.untyped_storage().nbytes() for t in mine)
+                check(dev["devices"][0].get("bytes_in_use", 0) > 0,
+                      f"path_serve: devmon read no bytes in use: {dev}")
+                check(census["owners"]["resident_index"]["bytes"]
+                      == want_bytes, f"path_serve: census "
+                      f"{census['owners']} != {want_bytes} index bytes")
+                check(recompiles == 0 and watch.recompile_count == 0,
+                      f"path_serve: {watch.recompile_count} builds after "
+                      f"warm-up")
+                out["devmon"] = {"sample": dev, "census": census,
+                                 "index_bytes": want_bytes,
+                                 "index_tensor_bytes": sum(
+                                     t.nbytes for t in mine),
+                                 "recompiles_after_warm": recompiles}
+        finally:
+            srv.close()
+        check_serve_threads_gone(f"depth {depth}")
+    out["breakdown_depth1"] = serve_breakdown(r, requests)
+    # every served answer equals a direct search, at both depths
+    for t, reqs in enumerate(requests):
+        for i, (qs, kw) in enumerate(reqs):
+            want = r.search(qs, k=RETR_K, **kw)
+            for depth in (1, 2):
+                check(_same_search(answers_by_depth[depth][t][i], want),
+                      f"path_serve depth {depth}: request {t}/{i} differs "
+                      f"from a direct search")
+
+    # step 3: admission past queue_depth, then a swap (B4 at index_dir)
+    tight = TfidfServer(r, ServeConfig(queue_depth=4, max_wait_ms=60_000,
+                                       max_batch=1024, cache_entries=0))
+    try:
+        held = [tight.submit([q], RETR_K) for q in queries[:4]]
+        try:
+            tight.submit([queries[4]], RETR_K)
+            shed = False
+        except Overloaded:
+            shed = True
+        check(shed, "path_serve: a submit past queue_depth was admitted")
+    finally:
+        tight.close(drain=True)
+    check_serve_threads_gone("the admission server")
+    for q, f in zip(queries[:4], held):
+        check(_same_search(f.result(timeout=300), r.search([q], k=RETR_K)),
+              "path_serve: a held request differs after the drain")
+    srv = TfidfServer(r, ServeConfig())
+    try:
+        before = srv.search(queries[:8], k=RETR_K, timeout=300)
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = T.TfidfRetriever(cfg).index_dir(small_dir, doc_len=DOC_LEN,
+                                              chunk_docs=RETR_CHUNK)
+        epoch = srv.swap_index(new)
+        after = srv.search(queries[:64], k=RETR_K, timeout=300)
+        swap_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        for kernel, c in launches.items():
+            total[kernel] += c
+        n_chunks = -(-len(small_corpus) // RETR_CHUNK)
+        check(launches["ragged_rebuild"] == n_chunks,
+              f"path_serve: the swap's index_dir launched B4 "
+              f"{launches['ragged_rebuild']} times, not {n_chunks}")
+        check(epoch == 1 and srv.epoch == 1, "path_serve: swap epoch")
+        check(_same_search(after, new.search(queries[:64], k=RETR_K)),
+              "path_serve: after the swap, answers differ from the new "
+              "index's search")
+        check(_same_search(before, r.search(queries[:8], k=RETR_K)),
+              "path_serve: before the swap, answers differ")
+        out["swap"] = {"docs": new._num_docs, "index_and_swap_s": swap_s,
+                       "launches": launches, "epoch": epoch}
+    finally:
+        srv.close()
+    check_serve_threads_gone("the swapped server")
+
+    # step 4: a segmented server under add_docs / delete_docs. Launches
+    # are counted around the server's own calls only: the rebuild and
+    # its searches, which launch B6 too, run outside the counted windows.
+    t0 = time.perf_counter()
+    idx = SegmentedIndex.from_corpus(small_corpus, cfg,
+                                     delta_docs=SEG_DELTA,
+                                     compact_at=SEG_COMPACT_AT)
+    seg_build_s = time.perf_counter() - t0
+    seg = TfidfServer(idx.view(), ServeConfig())
+    seg.attach_segments(idx)
+    rng = np.random.default_rng(SEED + 8)
+    new_docs = zipf_docs(rng, SERVE_SEG_CALLS * SEG_CALL)
+    seg_launches = {kernel: 0 for kernel in K.LAUNCHES}
+
+    def served(fn):
+        K.reset_launches()
+        try:
+            return fn()
+        finally:
+            for kernel, c in K.LAUNCHES.items():
+                seg_launches[kernel] += c
+
+    mutate_s, checks = 0.0, 0
+    try:
+        calls = [("add", [f"served{j}" for j in range(c * SEG_CALL,
+                                                      (c + 1) * SEG_CALL)],
+                  new_docs[c * SEG_CALL:(c + 1) * SEG_CALL])
+                 for c in range(SERVE_SEG_CALLS)]
+        calls.append(("delete", [f"doc{j}" for j in
+                                 rng.permutation(len(small_corpus))[:SEG_CALL]
+                                 + 1], None))
+        for kind, names, docs in calls:
+            t0 = time.perf_counter()
+            got = served(lambda: seg.add_docs(names, docs) if kind == "add"
+                         else seg.delete_docs(names))
+            mutate_s += time.perf_counter() - t0
+            check(got["epoch"] == seg.epoch, "path_serve: mutation epoch")
+            _, view = seg.current_index()
+            served_res = [(kw, served(lambda: seg.search(
+                queries[:16], k=RETR_K, timeout=300, **kw)))
+                for kw in ({}, {"scorer": "bm25"})]
+            oracle = idx.rebuild_retriever()
+            for kw, a in served_res:
+                b = oracle.search(queries[:16], k=RETR_K, **kw)
+                check(_named(view, a) == _named(oracle, b),
+                      f"path_serve: segmented server after {kind} differs "
+                      f"from rebuild_retriever() ({kw})")
+                # the positions, mapped to the rebuild's, under compare_search
+                where = {name: i for i, name in enumerate(oracle.names)}
+                ids = np.array([[where[view.names[i]] if i >= 0 else -1
+                                 for i in row] for row in a[1]])
+                cmp = compare_search(a[0], ids, *b)
+                check(cmp["ok"], f"path_serve: segmented {cmp}")
+                checks += 1
+    finally:
+        seg.close()
+    check_serve_threads_gone("the segmented server")
+    for kernel, c in seg_launches.items():
+        total[kernel] += c
+    check(seg_launches["tile_scores"] > 0,
+          "path_serve: the segmented server never launched B6")
+    out["segmented"] = {"base_docs": len(small_corpus),
+                        "from_corpus_s": seg_build_s,
+                        "mutation_calls": len(calls),
+                        "mutate_install_s": mutate_s,
+                        "epoch": seg.epoch, "checks": checks,
+                        "launches": seg_launches}
+
+    # step 6: cli serve in a subprocess, no --device: it serves on cuda
+    lines = [json.dumps({"id": i, "queries": [queries[i]], "k": RETR_K})
+             for i in range(SERVE_CLI_QUERIES)]
+    lines += [json.dumps({"id": f"op_{op}", "op": op})
+              for op in ("healthz", "readyz", "metrics", "devmon")]
+    lines.append(json.dumps({"op": "shutdown"}))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tfidf_tpu_torch.cli", "serve", "--input",
+         small_dir, "--doc-len", str(DOC_LEN), "-k", str(RETR_K),
+         "--canary-period-ms", "0"],
+        input="\n".join(lines) + "\n", capture_output=True, text=True,
+        timeout=600, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"path_serve: cli serve exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    by_id = {}
+    for line in proc.stdout.splitlines():
+        if line.strip():
+            resp = json.loads(line)
+            by_id[resp.get("id")] = resp
+    want_v, want_i = new.search(queries[:SERVE_CLI_QUERIES], k=RETR_K)
+    for i in range(SERVE_CLI_QUERIES):
+        got = by_id.get(i, {}).get("results")
+        check(got is not None, f"path_serve: cli serve gave no results for "
+              f"line {i}: {by_id.get(i)}")
+        want = [[new.names[int(d)], float(v)]
+                for v, d in zip(want_v[i], want_i[i]) if d >= 0]
+        check([nm for nm, _ in got[0]] == [nm for nm, _ in want]
+              and all(np.float32(a).view(np.uint32)
+                      == np.float32(b).view(np.uint32)
+                      for (_, a), (_, b) in zip(got[0], want)),
+              f"path_serve: cli serve line {i} differs from the library's "
+              f"search")
+    health = by_id["op_healthz"]["healthz"]
+    metrics = by_id["op_metrics"]["metrics"]
+    cli_dev = by_id["op_devmon"]["devmon"]
+    check(metrics["fingerprint"]["backend"] == "cuda",
+          f"path_serve: cli serve backend {metrics['fingerprint']}")
+    check(by_id["op_readyz"]["readyz"]["ready"] is True,
+          "path_serve: cli serve not ready")
+    check(health["checks"]["xla_recompiles_after_warm"] == 0,
+          "path_serve: cli serve recompiled after warm-up")
+    check(cli_dev["devices"][0].get("bytes_in_use", 0) > 0,
+          "path_serve: cli serve's devmon read no bytes")
+    out["cli"] = {"seconds": cli_s, "health": health["status"],
+                  "fingerprint": metrics["fingerprint"],
+                  "requests": metrics["requests"],
+                  "latency_s": metrics["latency_s"],
+                  "devmon_bytes_in_use":
+                      cli_dev["devices"][0]["bytes_in_use"],
+                  "stderr_tail": proc.stderr[-400:]}
+    emit({"phase": "path_serve", "docs": n, "k": RETR_K,
+          "threads": SERVE_THREADS, "requests_per_thread": SERVE_REQUESTS,
+          "mix": ["tfidf", "bm25", "tfidf+id_range"], **out,
+          "served_equals_direct": True, "depth2_equals_depth1": True,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+
+
 def b6_bound(data, cols, q: int):
     """What one tile-scores call needs at this data: data at every slot,
     cols at live slots, the qmat rows of the distinct live columns (Q
@@ -1921,6 +2418,7 @@ def b6_kernel_cases(K, R, r, cfg, queries, summary):
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
         return 2
@@ -1986,9 +2484,12 @@ def main() -> int:
         r, rcfg, queries = path_retrieval(T, K, big, big_docs, total)
         from tfidf_tpu_torch.models import retrieval as R
         b6_kernel_cases(K, R, r, rcfg, queries, summary)
-        del r
         path_stream(T, K, small, big_docs, rg.df, total)
         path_segmented(T, K, big_docs, queries, total)
+        # last: its profile of a multi-threaded load runs after every
+        # other profile of the script
+        path_serve(T, K, r, rcfg, queries, small, corpus, total)
+        del r
 
     sources = {"fused_score_topk": ("tfidf_tpu_torch/csrc/score_topk.cu",
                                     "tfidf_tpu/ops/pallas_kernels.py:466"),
@@ -2022,6 +2523,7 @@ def main() -> int:
                          "rows_over_32_head_slots", "rebuild_only_ms",
                          "granule_offsets_chain_ms", "token_starts_ms",
                          "launch_floor_ms", "other_shapes") if key in s}})
+    emit({"phase": "run_time", "seconds": time.perf_counter() - t_run})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -63,7 +63,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tfidf_tpu_torch/index/compactor.py",
                  "tfidf_tpu_torch/faults.py",
                  "tfidf_tpu_torch/obs/tracer.py",
-                 "tfidf_tpu_torch/obs/log.py"):
+                 "tfidf_tpu_torch/obs/log.py",
+                 # the serving slice: the server, its host modules and
+                 # the observability they report through
+                 "tfidf_tpu_torch/serve/__init__.py",
+                 "tfidf_tpu_torch/serve/server.py",
+                 "tfidf_tpu_torch/serve/batcher.py",
+                 "tfidf_tpu_torch/serve/cache.py",
+                 "tfidf_tpu_torch/serve/canary.py",
+                 "tfidf_tpu_torch/serve/metrics.py",
+                 "tfidf_tpu_torch/serve/supervisor.py",
+                 "tfidf_tpu_torch/obs/registry.py",
+                 "tfidf_tpu_torch/obs/health.py",
+                 "tfidf_tpu_torch/obs/slo.py",
+                 "tfidf_tpu_torch/obs/reqtrace.py",
+                 "tfidf_tpu_torch/obs/disttrace.py",
+                 "tfidf_tpu_torch/obs/devmon.py"):
         assert path in rel
     offenders = []
     for path in files:
@@ -267,6 +282,18 @@ def test_cli_doc_len_without_gpu_raises(no_gpu, toy_corpus_dir, tmp_path):
     assert not out.exists()
 
 
+def test_serve_without_gpu_raises(no_gpu, toy_corpus_dir, monkeypatch,
+                                  capsys):
+    import io
+    monkeypatch.setattr("sys.stdin", io.StringIO('{"op": "shutdown"}\n'))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["serve", "--input", toy_corpus_dir])
+    assert capsys.readouterr().out == ""
+    monkeypatch.setattr("sys.stdin", io.StringIO('{"op": "shutdown"}\n'))
+    assert cli.main(["serve", "--input", toy_corpus_dir, "--device", "cpu",
+                     "--no-warm", "--canary-period-ms", "0"]) == 0
+
+
 def test_streaming_and_index_without_gpu_raise(no_gpu, toy_corpus_dir,
                                                tmp_path, capsys):
     from tfidf_tpu_torch.index import SegmentedIndex
@@ -329,9 +356,38 @@ class TestNotPortedYet:
     @pytest.mark.parametrize("member", ["MetricsRegistry", "HealthMonitor",
                                         "DeviceMonitor", "SloTracker"])
     def test_serving_obs(self, member):
+        # Ported now (ROADMAP A8): the lazy members are the port's own
+        # classes, defined in the port's modules.
         from tfidf_tpu_torch import obs
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            getattr(obs, member)
+        cls = getattr(obs, member)
+        assert cls.__module__.startswith("tfidf_tpu_torch.obs.")
+
+    @pytest.mark.parametrize("member", ["ReplicatedFront", "FrontError",
+                                        "SwapAborted"])
+    def test_serving_front(self, member):
+        from tfidf_tpu_torch import serve
+        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+            getattr(serve, member)
+
+    @pytest.mark.parametrize("flags,item", [
+        (["--replicas", "2", "--snapshot-dir", "snap"], "ROADMAP A8b"),
+        (["--replica-timeout-s", "5"], "ROADMAP A8b"),
+        (["--mesh-shards", "2"], "ROADMAP A9")])
+    def test_serve_cli_options(self, toy_corpus_dir, flags, item):
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(["serve", "--input", toy_corpus_dir, "--device", "cpu",
+                      *flags])
+
+    @pytest.mark.parametrize("kw,item", [
+        ({"replicas": 2, "snapshot_dir": "snap"}, "ROADMAP A8b"),
+        ({"mesh_shards": 2}, "ROADMAP A9")])
+    def test_server_options(self, toy_corpus_dir, kw, item):
+        from tfidf_tpu_torch.config import ServeConfig
+        from tfidf_tpu_torch.serve import TfidfServer
+        r = T.TfidfRetriever(T.PipelineConfig(vocab_mode=VocabMode.HASHED),
+                             device="cpu").index_dir(toy_corpus_dir)
+        with pytest.raises(NotImplementedError, match=item):
+            TfidfServer(r, ServeConfig(**kw))
 
     @pytest.mark.parametrize("kw,item", [
         ({"plan": object()}, "ROADMAP A9"),

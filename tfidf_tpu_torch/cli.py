@@ -1,5 +1,5 @@
-"""Command line of the PyTorch/CUDA port: the ``run``, ``stream`` and
-``query`` subcommands.
+"""Command line of the PyTorch/CUDA port: the ``run``, ``stream``,
+``query`` and ``serve`` subcommands.
 
     python -m tfidf_tpu_torch.cli run --input DIR [--output output.txt]
         [--vocab-mode exact|hashed] [--vocab-size N] [--topk K]
@@ -39,6 +39,18 @@ through the overlapped ingest's chunk step) and prints, per query,
 ``query: <text>`` then one ``  <name>\t<score>`` line per result, as the
 JAX CLI's ``query`` does.
 
+    python -m tfidf_tpu_torch.cli serve --input DIR [-k K] [--doc-len L]
+        [--max-batch N] [--max-wait-ms MS] [--queue-depth N]
+        [--serve-pipeline-depth D] [--delta-docs N] [--snapshot-dir DIR]
+        [--port P] [--device cuda|cpu] ...
+
+indexes the directory (or restores ``--snapshot-dir``) and serves it
+through ``serve.TfidfServer``: one JSON request per line on stdin (or on
+TCP with ``--port``), one JSON response line each, in completion order —
+the JAX CLI's ``serve`` protocol and ops (``--help`` lists them).
+``--mesh-shards`` raises naming ROADMAP A9, ``--replicas`` and
+``--replica-timeout-s`` ROADMAP A8b.
+
 Each runs on CUDA unless ``--device cpu`` is given, and fails when no GPU
 is present and no device was named.
 """
@@ -46,8 +58,40 @@ is present and no device was named.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
+
+
+# --help epilog of the serve subcommand: the JSONL wire protocol, the
+# JAX package's.
+_SERVE_EPILOG = """\
+protocol (one JSON object per line):
+  {"id": 1, "queries": ["apple pie"], "k": 5}
+      -> {"id": 1, "results": [[["doc3", 0.81], ...]], "rid": "r..-1",
+      "epoch": 0}
+  {"id": 2, "queries": [...], "deadline_ms": 50}
+      -> {"id": 2, "error": "deadline_exceeded"} when shed
+  {"id": 3, "queries": [...], "scorer": "bm25:k1=1.5,b=0.6",
+   "filter": {"id_range": [0, 100]}}
+      -> per-request scoring-family member + candidate filter
+  {"op": "set_scorer", "scorer": "bm25"} -> {"scorer": ..., "epoch": N}
+  {"op": "metrics"}       -> {"metrics": {...}}
+  {"op": "metrics_prom"}  -> {"metrics_prom": "..."}
+  {"op": "obs_export"}    -> {"obs_export": {"schema": "tfidf-obs/1", ...}}
+  {"op": "healthz"}       -> {"healthz": {"status": "ok", ...}}
+  {"op": "readyz"}        -> {"readyz": {"ready": true, ...}}
+  {"op": "canary"}        -> {"canary": {"parity": 1.0}}
+  {"op": "devmon"}        -> {"devmon": {"devices": [...], "census": ...}}
+  {"op": "swap_index", "input": DIR} -> {"swapped": true, "epoch": N}
+  {"op": "snapshot"}      -> {"snapshot": DIR, "epoch": N}
+  {"op": "add_docs", "docs": [{"name": N, "text": T}, ...]}
+      -> {"added": 2, "updated": 1, "sealed": 0, "epoch": N}
+  {"op": "delete_docs", "names": [N, ...]}
+      -> {"deleted": 1, "missing": 0, "epoch": N}
+  {"op": "shutdown"}      -> drains in-flight work and exits
+Responses come back in completion order; correlate by "id".
+"""
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -153,6 +197,160 @@ def _build_parser() -> argparse.ArgumentParser:
     q.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
+    sv = sub.add_parser(
+        "serve",
+        help="index a corpus and serve ranked retrieval online (JSONL "
+             "request loop over stdin or TCP)",
+        epilog=_SERVE_EPILOG,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sv.add_argument("--input", required=True, help="document directory")
+    sv.add_argument("--vocab-size", type=int, default=1 << 16)
+    sv.add_argument("--doc-len", type=int, default=None,
+                    help="static tokens per document: index via the "
+                         "overlapped ingest's chunk step (native loader; "
+                         "longer docs truncated); default whole-corpus "
+                         "batch path")
+    sv.add_argument("-k", type=int, default=10,
+                    help="default results per query (requests may "
+                         "override per line)")
+    sv.add_argument("--max-batch", type=int, default=None,
+                    help="most queries one coalesced device batch "
+                         "carries (default 256; env TFIDF_TPU_MAX_BATCH)")
+    sv.add_argument("--max-wait-ms", type=float, default=None,
+                    help="micro-batching window: the oldest queued "
+                         "request never waits longer than this for the "
+                         "batch to fill (default 2; env "
+                         "TFIDF_TPU_MAX_WAIT_MS)")
+    sv.add_argument("--queue-depth", type=int, default=None,
+                    help="admission bound in queries; past it requests "
+                         "shed with an 'overloaded' error (default 256; "
+                         "env TFIDF_TPU_QUEUE_DEPTH)")
+    sv.add_argument("--cache-entries", type=int, default=None,
+                    help="LRU result-cache capacity in per-query rows; 0 "
+                         "disables (default 4096; env "
+                         "TFIDF_TPU_CACHE_ENTRIES)")
+    sv.add_argument("--deadline-ms", type=float, default=None,
+                    help="default per-request deadline; requests still "
+                         "queued past it shed with 'deadline_exceeded' "
+                         "(default: no deadline)")
+    sv.add_argument("--health-period-ms", type=float, default=250.0,
+                    help="watchdog cadence (healthz/readyz ops; degraded "
+                         "shrinks the admission bound). 0 disables the "
+                         "background thread (default 250; env "
+                         "TFIDF_TPU_HEALTH_PERIOD_MS)")
+    sv.add_argument("--devmon-period-ms", type=float, default=1000.0,
+                    help="device-monitor cadence: every period the server "
+                         "reads torch.cuda.memory_stats/mem_get_info per "
+                         "device into gauges, checks the watermarks "
+                         "(TFIDF_TPU_HBM_WATERMARKS) and refreshes the "
+                         "memory_pressure health signal. 0 disables the "
+                         "thread (default 1000; env "
+                         "TFIDF_TPU_DEVMON_PERIOD_MS). On the CPU the "
+                         "same path runs with the gauges absent")
+    sv.add_argument("--slow-ms", type=float, default=None,
+                    help="slow-query threshold: a resolved request over "
+                         "this total latency emits a slow_query flight "
+                         "event with its per-phase breakdown (env "
+                         "TFIDF_TPU_SLOW_MS; default: off)")
+    sv.add_argument("--slo-ms", type=float, default=None,
+                    help="latency objective of the SLO burn gauges; a "
+                         "fast burn degrades health (env "
+                         "TFIDF_TPU_SLO_MS; default: off)")
+    sv.add_argument("--slo-target", type=float, default=None,
+                    help="fraction of requests that must meet --slo-ms "
+                         "(default 0.99; env TFIDF_TPU_SLO_TARGET)")
+    sv.add_argument("--no-warm", action="store_true",
+                    help="skip the power-of-two query-bucket warm-up "
+                         "(and its mark_warm() line): the build watchdog "
+                         "then never flags a build after warm-up")
+    sv.add_argument("--canary-period-ms", type=float, default=5000.0,
+                    help="canary parity-probe cadence: replay pinned "
+                         "golden queries through the batched path and "
+                         "bit-compare against the swap-time oracle. 0 "
+                         "disables (default 5000)")
+    sv.add_argument("--canary-queries", type=int, default=8,
+                    help="pinned golden queries drawn from the corpus "
+                         "(first tokens of the first N docs)")
+    sv.add_argument("--snapshot-dir", metavar="DIR", default=None,
+                    help="index snapshot root (also env "
+                         "TFIDF_TPU_SNAPSHOT_DIR): on start a committed "
+                         "snapshot (either package's) with a matching "
+                         "config fingerprint restores instead of "
+                         "re-indexing --input; after a fresh build, and "
+                         "before every swap_index flip, the index is "
+                         "snapshotted there")
+    sv.add_argument("--mesh-shards", type=int, default=None,
+                    help="serve one index doc-sharded over this many "
+                         "devices (not ported yet: ROADMAP A9)")
+    sv.add_argument("--query-slab", choices=["on", "off"], default=None,
+                    help="query slab: pinned staging slots and one "
+                         "non-blocking H2D copy a batch; 'off' allocates "
+                         "the block each batch, the same bits (default "
+                         "on; env TFIDF_TPU_QUERY_SLAB)")
+    sv.add_argument("--disttrace", choices=["on", "off"], default=None,
+                    help="adopt inbound fleet trace contexts (the "
+                         "\"trace\" JSONL field; default on; env "
+                         "TFIDF_TPU_DISTTRACE)")
+    sv.add_argument("--serve-pipeline-depth", type=int, default=None,
+                    metavar="D",
+                    help="pipelined serving: up to D dispatched batches in "
+                         "flight while the batcher coalesces the next; an "
+                         "ordered drain worker materializes them. 1 = "
+                         "unpipelined, the same bits (default 2; env "
+                         "TFIDF_TPU_SERVE_PIPELINE)")
+    sv.add_argument("--score-tiling", choices=["on", "off"], default=None,
+                    help="tiled scoring over 4,096-row doc tiles (env "
+                         "TFIDF_TPU_QUERY_BLOCK) or 'off': one launch over "
+                         "every row in 64-query blocks, the same bits "
+                         "(default on; env TFIDF_TPU_SCORE_TILING)")
+    sv.add_argument("--delta-docs", type=int, default=None,
+                    help="serve a SEGMENTED index with a delta segment of "
+                         "this capacity: the add_docs/delete_docs ops "
+                         "mutate it live (default: off; env "
+                         "TFIDF_TPU_DELTA_DOCS)")
+    sv.add_argument("--compact-at", type=int, default=None,
+                    help="sealed-segment count at which the background "
+                         "compactor merges them (default 4; env "
+                         "TFIDF_TPU_COMPACT_AT; needs --delta-docs)")
+    sv.add_argument("--replicas", type=int, default=None, metavar="N",
+                    help="replicated serving tier (not ported yet: "
+                         "ROADMAP A8b)")
+    sv.add_argument("--replica-timeout-s", type=float, default=None,
+                    metavar="S",
+                    help="replicated tier patience (not ported yet: "
+                         "ROADMAP A8b)")
+    sv.add_argument("--scorer", metavar="SPEC", default=None,
+                    help="default scoring-family member for requests that "
+                         "name none: 'tfidf', 'bm25' or "
+                         "'bm25:k1=1.5,b=0.6' (env TFIDF_TPU_SCORER)")
+    sv.add_argument("--bm25-k1", type=float, default=None, metavar="K1",
+                    help="BM25 k1 of a bare --scorer bm25 (default 1.2; "
+                         "env TFIDF_TPU_BM25_K1)")
+    sv.add_argument("--bm25-b", type=float, default=None, metavar="B",
+                    help="BM25 b of a bare --scorer bm25 (default 0.75; "
+                         "env TFIDF_TPU_BM25_B)")
+    sv.add_argument("--faults", metavar="PLAN", default=None,
+                    help="arm a deterministic fault-injection plan (also "
+                         "env TFIDF_TPU_FAULTS; grammar in "
+                         "tfidf_tpu_torch/faults.py)")
+    sv.add_argument("--fault-seed", type=int, default=None,
+                    help="seed of the fault plan's probabilistic rules + "
+                         "retry jitter (env TFIDF_TPU_FAULT_SEED)")
+    sv.add_argument("--flight", metavar="OUT.jsonl", default=None,
+                    help="flight-recorder dump path, written on shutdown "
+                         "and SIGTERM (also env TFIDF_TPU_FLIGHT; with "
+                         "--trace and no --flight it lands next to the "
+                         "trace as <trace>.flight.jsonl)")
+    sv.add_argument("--port", type=int, default=None,
+                    help="serve JSONL over TCP on this port instead of "
+                         "stdin/stdout")
+    sv.add_argument("--no-strict", action="store_true")
+    sv.add_argument("--trace", default=None,
+                    help="record spans and write them as Chrome trace "
+                         "JSON to this path (or TFIDF_TPU_TRACE)")
+    sv.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
     return p
 
 
@@ -176,6 +374,491 @@ def _run_query(args) -> int:
             if d < 0:
                 continue
             print(f"  {r.names[int(d)]}\t{float(v):.6f}")
+    return 0
+
+
+def _serve_handle_line(server, line, write, default_k, build_retriever,
+                       canary=None):
+    """One JSONL request -> one JSON response line (written via
+    ``write``, possibly from a batcher callback thread). Returns False
+    when the line asked for shutdown."""
+    import json
+
+    from tfidf_tpu_torch.serve import (DeadlineExceeded, Overloaded,
+                                       PoisonQuery, ServeError)
+
+    line = line.strip()
+    if not line:
+        return True
+    try:
+        req = json.loads(line)
+        if not isinstance(req, dict):
+            raise ValueError("request must be a JSON object")
+    except ValueError as e:
+        write({"error": f"bad request: {e}"})
+        return True
+    op = req.get("op")
+    if op == "shutdown":
+        return False
+    if op == "metrics":
+        write({"id": req.get("id"), "metrics": server.metrics_snapshot()})
+        return True
+    if op == "metrics_prom":
+        write({"id": req.get("id"),
+               "metrics_prom": server.metrics_prom()})
+        return True
+    if op == "obs_export":
+        write({"id": req.get("id"), "obs_export": server.obs_export()})
+        return True
+    if op == "healthz":
+        write({"id": req.get("id"), "healthz": server.healthz()})
+        return True
+    if op == "readyz":
+        write({"id": req.get("id"), "readyz": server.readyz()})
+        return True
+    if op == "devmon":
+        if server.devmon is None:
+            write({"id": req.get("id"),
+                   "error": "device monitor disabled "
+                            "(--devmon-period-ms 0)"})
+        else:
+            snap = server.devmon.sample()
+            snap["census"] = server.devmon.census()
+            write({"id": req.get("id"), "devmon": snap})
+        return True
+    if op == "canary":
+        if canary is None:
+            write({"id": req.get("id"),
+                   "error": "canary prober disabled "
+                            "(--canary-period-ms 0)"})
+        else:
+            parity = canary.probe()
+            write({"id": req.get("id"), "canary": (
+                {"skipped": True} if parity is None
+                else {"parity": parity})})
+        return True
+    if op == "swap_index":
+        try:
+            epoch = server.swap_index(build_retriever(req["input"]))
+            write({"id": req.get("id"), "swapped": True, "epoch": epoch})
+        except (KeyError, ValueError, OSError) as e:
+            write({"id": req.get("id"), "error": f"swap failed: {e}"})
+        return True
+    if op == "snapshot":
+        try:
+            path = server.snapshot()
+            write({"id": req.get("id"), "snapshot": path,
+                   "epoch": server.epoch})
+        except (ValueError, OSError, RuntimeError) as e:
+            write({"id": req.get("id"), "error": f"snapshot failed: {e}"})
+        return True
+    if op == "add_docs":
+        docs = req.get("docs")
+        if (not isinstance(docs, list) or not docs or not all(
+                isinstance(d, dict) and isinstance(d.get("name"), str)
+                and isinstance(d.get("text"), str) for d in docs)):
+            write({"id": req.get("id"),
+                   "error": "bad request: 'docs' must be a non-empty "
+                            "list of {\"name\": str, \"text\": str}"})
+            return True
+        try:
+            out = server.add_docs([d["name"] for d in docs],
+                                  [d["text"] for d in docs])
+            write({"id": req.get("id"), "added": out["added"],
+                   "updated": out["updated"], "sealed": out["sealed"],
+                   "epoch": out["epoch"]})
+        except (RuntimeError, ValueError) as e:
+            write({"id": req.get("id"), "error": f"add_docs failed: {e}"})
+        return True
+    if op == "delete_docs":
+        names = req.get("names")
+        if (not isinstance(names, list) or not names
+                or not all(isinstance(n, str) for n in names)):
+            write({"id": req.get("id"),
+                   "error": "bad request: 'names' must be a non-empty "
+                            "list of strings"})
+            return True
+        try:
+            out = server.delete_docs(names)
+            write({"id": req.get("id"), "deleted": out["deleted"],
+                   "missing": out["missing"], "epoch": out["epoch"]})
+        except (RuntimeError, ValueError) as e:
+            write({"id": req.get("id"),
+                   "error": f"delete_docs failed: {e}"})
+        return True
+    if op == "set_scorer":
+        try:
+            epoch = server.set_scorer(req.get("scorer"))
+            write({"id": req.get("id"),
+                   "scorer": server.default_scorer_key(),
+                   "epoch": epoch})
+        except (ValueError, TypeError) as e:
+            write({"id": req.get("id"),
+                   "error": f"set_scorer failed: {e}"})
+        return True
+    if op is not None:
+        write({"id": req.get("id"), "error": f"unknown op {op!r}"})
+        return True
+
+    line_id = req.get("id")
+    queries = req.get("queries")
+    if not isinstance(queries, list) or not all(
+            isinstance(q, str) for q in queries):
+        write({"id": line_id, "error": "bad request: 'queries' must be a "
+                                   "list of strings"})
+        return True
+    k = int(req.get("k", default_k))
+    names = server.doc_names()
+    # Fleet trace adoption: a front-routed request arrives
+    # with a compact trace context; malformed/missing/disabled all
+    # degrade to None — the request proceeds rid-only, never fails.
+    from tfidf_tpu_torch.obs import disttrace
+    tctx = disttrace.from_wire(req.get("trace"))
+
+    def on_done(f):
+        # The request id rides every response line — the
+        # client-visible half of the forensic join: the same rid is
+        # on the request's spans, its flight digest and any
+        # slow_query event.
+        extra = ({"rid": f.rid}
+                 if getattr(f, "rid", None) is not None else {})
+        if getattr(f, "trace", None) is not None:
+            # The fleet trace id echoes next to the rid: the front
+            # (and doctor --request) join this response to the spans
+            # every process recorded under the same t<16hex> key.
+            extra["trace"] = f.trace
+        if getattr(f, "epoch", None) is not None:
+            # The admitted epoch on every response line: the
+            # replicated front's mixed-epoch audit (and any client's
+            # consistency check) reads it straight off the protocol.
+            extra["epoch"] = f.epoch
+        err = f.exception()
+        if isinstance(err, Overloaded):
+            write({"id": line_id, "error": "overloaded", **extra})
+        elif isinstance(err, DeadlineExceeded):
+            write({"id": line_id, "error": "deadline_exceeded", **extra})
+        elif isinstance(err, PoisonQuery):
+            write({"id": line_id, "error": "poison_query",
+                   "detail": str(err), **extra})
+        elif err is not None:
+            write({"id": line_id, "error": str(err), **extra})
+        else:
+            vals, idx = f.result()
+            write({"id": line_id, "results": [
+                [[names[int(d)], float(v)]
+                 for v, d in zip(vrow, irow) if d >= 0]
+                for vrow, irow in zip(vals, idx)], **extra})
+
+    try:
+        server.submit(queries, k,
+                      deadline_ms=req.get("deadline_ms"),
+                      use_cache=bool(req.get("use_cache", True)),
+                      scorer=req.get("scorer"),
+                      filter=req.get("filter"),
+                      trace=(tctx.trace if tctx is not None else None)
+                      ).add_done_callback(on_done)
+    except (ValueError, TypeError) as e:  # malformed scorer/filter spec
+        write({"id": line_id, "error": f"bad request: {e}"})
+    except PoisonQuery as e:     # quarantined: the protocol's 4xx
+        write({"id": line_id, "error": "poison_query", "detail": str(e),
+               **({"rid": e.rid} if getattr(e, "rid", None) else {})})
+    except (Overloaded, ServeError) as e:
+        write({"id": line_id,
+               "error": "overloaded" if isinstance(e, Overloaded)
+               else str(e),
+               **({"rid": e.rid} if getattr(e, "rid", None) else {})})
+    return True
+
+
+def _run_serve(args) -> int:
+    """Online serving loop: JSONL requests over stdin/stdout (or TCP with
+    --port) against a TfidfServer. Responses come back in COMPLETION
+    order; clients correlate by "id"."""
+    import json
+    import threading
+    import time
+
+    from tfidf_tpu_torch import checkpoint as ckpt
+    from tfidf_tpu_torch.config import PipelineConfig, ServeConfig, VocabMode
+    from tfidf_tpu_torch.models import TfidfRetriever
+    from tfidf_tpu_torch.obs import log as obs_log
+    from tfidf_tpu_torch.pipeline import resolve_device
+    from tfidf_tpu_torch.serve import TfidfServer
+
+    if args.mesh_shards is not None:
+        raise NotImplementedError(
+            "serve --mesh-shards (one index doc-sharded over several "
+            "devices) is not ported yet: ROADMAP A9")
+    if args.replicas is not None or args.replica_timeout_s is not None:
+        raise NotImplementedError(
+            "serve --replicas/--replica-timeout-s (the replicated serving "
+            "front) is not ported yet: ROADMAP A8b")
+    # Fail before any work when no device was named and there is no GPU.
+    device = resolve_device(args.device)
+    if args.score_tiling is not None:
+        # The knob is read at dispatch time, so the env var is the one
+        # source of truth for every consumer (flat and segmented).
+        os.environ["TFIDF_TPU_SCORE_TILING"] = args.score_tiling
+    cfg = PipelineConfig(vocab_mode=VocabMode.HASHED,
+                         vocab_size=args.vocab_size)
+
+    def build_retriever(input_dir: str) -> TfidfRetriever:
+        return TfidfRetriever(cfg, device=device).index_dir(
+            input_dir, strict=not args.no_strict, doc_len=args.doc_len)
+
+    serve_cfg = ServeConfig.from_env(
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        queue_depth=args.queue_depth, cache_entries=args.cache_entries,
+        default_deadline_ms=args.deadline_ms,
+        health_period_ms=args.health_period_ms,
+        devmon_period_ms=args.devmon_period_ms,
+        snapshot_dir=args.snapshot_dir, faults=args.faults,
+        fault_seed=args.fault_seed, slow_ms=args.slow_ms,
+        slo_ms=args.slo_ms, slo_target=args.slo_target,
+        delta_docs=args.delta_docs, compact_at=args.compact_at,
+        query_slab=(None if args.query_slab is None
+                    else args.query_slab == "on"),
+        disttrace=(None if args.disttrace is None
+                   else args.disttrace == "on"),
+        pipeline_depth=args.serve_pipeline_depth,
+        scorer=args.scorer, bm25_k1=args.bm25_k1, bm25_b=args.bm25_b)
+    if serve_cfg.disttrace is not None:
+        from tfidf_tpu_torch.obs import disttrace
+        disttrace.configure(serve_cfg.disttrace)
+
+    # A committed snapshot (either package's) with a matching config
+    # fingerprint restores the resident index without reading the
+    # corpus; a mismatched one falls back to the build, loudly.
+    retriever = None
+    restored_meta = None
+    segments = None
+    if serve_cfg.delta_docs:
+        from tfidf_tpu_torch.index import SegmentedIndex
+        if serve_cfg.snapshot_dir and ckpt.exists(serve_cfg.snapshot_dir):
+            t0 = time.monotonic()
+            try:
+                segments, restored_meta = SegmentedIndex.restore(
+                    serve_cfg.snapshot_dir, cfg, device=device)
+            except ckpt.SnapshotMismatch as e:
+                sys.stderr.write(
+                    f"snapshot at {serve_cfg.snapshot_dir} unusable "
+                    f"({e}); rebuilding from --input\n")
+            else:
+                obs_log.log_event(
+                    "info", "index_restored",
+                    msg=f"segmented index restored from "
+                        f"{serve_cfg.snapshot_dir} "
+                        f"(epoch {restored_meta.get('epoch', 0)}, "
+                        f"{segments.num_docs} live docs) in "
+                        f"{time.monotonic() - t0:.3f}s",
+                    epoch=restored_meta.get("epoch", 0),
+                    docs=segments.num_docs,
+                    restore_s=round(time.monotonic() - t0, 4))
+        if segments is None:
+            segments = SegmentedIndex.from_dir(
+                args.input, cfg, delta_docs=serve_cfg.delta_docs,
+                compact_at=serve_cfg.compact_at,
+                strict=not args.no_strict, device=device)
+        retriever = segments.view()
+    elif serve_cfg.snapshot_dir and ckpt.exists(serve_cfg.snapshot_dir):
+        t0 = time.monotonic()
+        try:
+            retriever, restored_meta = TfidfRetriever.restore(
+                serve_cfg.snapshot_dir, cfg, device=device)
+        except ckpt.SnapshotMismatch as e:
+            sys.stderr.write(f"snapshot at {serve_cfg.snapshot_dir} "
+                             f"unusable ({e}); rebuilding from --input\n")
+        else:
+            obs_log.log_event(
+                "info", "index_restored",
+                msg=f"index restored from {serve_cfg.snapshot_dir} "
+                    f"(epoch {restored_meta.get('epoch', 0)}, "
+                    f"{retriever._num_docs} docs) in "
+                    f"{time.monotonic() - t0:.3f}s — corpus not "
+                    f"re-indexed",
+                epoch=restored_meta.get("epoch", 0),
+                docs=retriever._num_docs,
+                restore_s=round(time.monotonic() - t0, 4))
+    if retriever is None:
+        retriever = build_retriever(args.input)
+    server = TfidfServer(
+        retriever, serve_cfg,
+        initial_epoch=(int(restored_meta.get("epoch", 0))
+                       if restored_meta else 0))
+    compactor = None
+    if segments is not None:
+        from tfidf_tpu_torch.index import Compactor
+        server.attach_segments(segments)
+        compactor = Compactor(
+            server.compact_now,
+            restart_budget=serve_cfg.restart_budget).start()
+    if serve_cfg.snapshot_dir and restored_meta is None:
+        # First boot on this snapshot root: persist the fresh build so
+        # the next start restores.
+        server.snapshot()
+    if not args.no_warm:
+        # Search every power-of-two query bucket steady state can see
+        # (empty queries stage the same blocks): on the card this builds
+        # the kernels at first use and fills every query-slab ring, so
+        # from mark_warm() on a native build is a recompile after warm.
+        _, installed = server.current_index()
+        b = 1
+        while b <= serve_cfg.max_batch:
+            installed.search([""] * b, k=args.k)
+            b *= 2
+        server.mark_warm()
+    # The serve process's monitor is THE process monitor: workers that
+    # beat through the module hook land in the same health view.
+    from tfidf_tpu_torch.obs import health as obs_health
+    obs_health.set_monitor(server.health)
+    canary = None
+    if args.canary_period_ms and args.canary_period_ms > 0:
+        from tfidf_tpu_torch.serve import (CanaryProber,
+                                           pinned_queries_from_dir)
+        try:
+            pinned = pinned_queries_from_dir(args.input,
+                                             n=args.canary_queries,
+                                             strict=not args.no_strict)
+        except (OSError, ValueError):
+            # Snapshot-restored server without the corpus on disk: no
+            # pinned queries to derive, so serve without the canary.
+            pinned = []
+        if pinned:
+            canary = CanaryProber(
+                server, pinned, k=args.k,
+                period_s=args.canary_period_ms / 1e3).start()
+    snap_state = ("restored" if restored_meta
+                  else "on" if serve_cfg.snapshot_dir else "off")
+    sys.stderr.write(f"serving {server.num_docs} docs on {device} "
+                     f"(max_batch={serve_cfg.max_batch}, "
+                     f"max_wait_ms={serve_cfg.max_wait_ms}, "
+                     f"queue_depth={serve_cfg.queue_depth}, "
+                     f"cache_entries={serve_cfg.cache_entries}, "
+                     f"pipeline_depth={serve_cfg.pipeline_depth}, "
+                     f"health_period_ms={serve_cfg.health_period_ms}, "
+                     f"canary={'on' if canary else 'off'}, "
+                     f"snapshot={snap_state}, "
+                     f"faults={'armed' if serve_cfg.faults else 'off'}, "
+                     f"segments="
+                     f"{'on' if segments is not None else 'off'})\n")
+
+    prev_term = _install_sigterm_dump()
+    try:
+        if args.port is not None:
+            def handle(line, write):
+                return _serve_handle_line(server, line, write, args.k,
+                                          build_retriever, canary)
+
+            def on_close():
+                if canary is not None:
+                    canary.close()
+                server.close(drain=True)
+            return _serve_tcp(handle, args.port, on_close)
+        # Responses may be written from batcher callback threads while
+        # the main thread blocks on the next stdin line: one lock keeps
+        # the JSONL stream line-atomic.
+        wlock = threading.Lock()
+
+        def write(obj) -> None:
+            with wlock:
+                sys.stdout.write(json.dumps(obj) + "\n")
+                sys.stdout.flush()
+
+        try:
+            for line in sys.stdin:
+                if not _serve_handle_line(server, line, write, args.k,
+                                          build_retriever, canary):
+                    break
+        finally:
+            if canary is not None:
+                canary.close()
+            server.close(drain=True)
+        return 0
+    finally:
+        if compactor is not None:
+            compactor.stop()
+        _restore_sigterm(prev_term)
+        obs_health.set_monitor(None)
+
+
+def _install_sigterm_dump():
+    """SIGTERM must leave evidence: dump the flight recorder and the
+    trace (atomic writes), then exit 143. Returns the previous handler
+    (restored by the caller — in-process test runs must not leak a
+    handler into the host process). No-op off the main thread or on
+    platforms without signals."""
+    import signal
+    import threading as _threading
+
+    if _threading.current_thread() is not _threading.main_thread():
+        return None
+
+    def _on_term(signum, frame):
+        from tfidf_tpu_torch import obs
+        obs.get_log().warning("sigterm",
+                              msg="SIGTERM: dumping flight recorder "
+                                  "and trace")
+        obs.dump_flight()
+        obs.export()
+        os._exit(143)
+
+    try:
+        return signal.signal(signal.SIGTERM, _on_term)
+    except (ValueError, OSError):  # non-main interpreter contexts
+        return None
+
+
+def _restore_sigterm(prev) -> None:
+    if prev is None:
+        return
+    import signal
+    try:
+        signal.signal(signal.SIGTERM, prev)
+    except (ValueError, OSError):
+        pass
+
+
+def _serve_tcp(handle_line, port, on_close) -> int:
+    """--port mode: the same JSONL protocol over TCP, one thread per
+    connection (socketserver), all feeding one shared backend —
+    which is the point: their queries coalesce into shared batches.
+    ``handle_line(line, write) -> bool`` is the protocol handler;
+    ``on_close()`` tears the backend down after the listener stops."""
+    import json
+    import socketserver
+    import threading
+
+    class Handler(socketserver.StreamRequestHandler):
+        def handle(self):
+            wlock = threading.Lock()
+
+            def write(obj):
+                with wlock:
+                    try:
+                        self.wfile.write((json.dumps(obj) + "\n").encode())
+                        self.wfile.flush()
+                    except OSError:
+                        pass  # client went away; drop the response
+
+            for raw in self.rfile:
+                if not handle_line(raw.decode("utf-8", "replace"),
+                                   write):
+                    threading.Thread(target=srv.shutdown,
+                                     daemon=True).start()
+                    return
+
+    class Srv(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+    with Srv(("127.0.0.1", port), Handler) as srv:
+        sys.stderr.write(f"listening on 127.0.0.1:{srv.server_address[1]}\n")
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            on_close()
     return 0
 
 
@@ -384,16 +1067,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.cmd == "run":
         return _run(args)
     # Arm the span tracer (--trace / TFIDF_TPU_TRACE; a no-op when neither
-    # is set) and export what was recorded on any exit.
+    # is set) and, for serve, the flight recorder (--flight /
+    # TFIDF_TPU_FLIGHT, or next to the trace); export both on any exit.
     from tfidf_tpu_torch import obs
     obs.configure(args.trace)
+    if args.cmd == "serve":
+        obs.configure_flight(args.flight)
     try:
+        if args.cmd == "serve":
+            return _run_serve(args)
         return _run_stream(args)
     finally:
         path = obs.export()
         if path:
             sys.stderr.write(f"trace written to {path} (Chrome trace "
                              f"JSON: open in Perfetto)\n")
+        if args.cmd == "serve":
+            fpath = obs.dump_flight()
+            if fpath:
+                sys.stderr.write(f"flight recorder dumped to {fpath}\n")
 
 
 if __name__ == "__main__":

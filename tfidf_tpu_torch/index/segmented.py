@@ -35,9 +35,10 @@ build's float sequence (``sparse_scores`` then
 ``models.retrieval._normalize_rows``; ``scoring.family.bm25_weights`` for
 bm25), which is what makes a view equal ``rebuild_retriever()`` bit for
 bit. The JAX package's ``index_compile_cache_size`` counts XLA programs;
-this package compiles none, so it has no counterpart (the serving
-layer's compile watch is ROADMAP A8). Runs on CUDA unless a device is
-named; with no GPU and no device named it raises.
+this package compiles none, so it has no counterpart and no stand-in
+(the serving layer's compile watch, ``obs.devmon.CompileWatch``, counts
+the native library builds). Runs on CUDA unless a device is named; with
+no GPU and no device named it raises.
 """
 
 from __future__ import annotations

@@ -18,12 +18,16 @@ Scores are cosine similarities in [0, 1] under the default tfidf scorer;
 Entry points run on CUDA unless the caller names another device
 (``TfidfRetriever(cfg, device="cpu")``, ``restore(path, device="cpu")``);
 with no GPU and no device named they raise. Not in this module: the
-docs-sharded mesh search (``plan=`` raises naming ROADMAP A9), and the
-JAX package's telemetry around a retriever's search (its ``score_tile``
-and ``h2d`` spans, ``devmon`` compile notes, jit cache sizes), which
-comes with the server (ROADMAP A8): the port compiles no programs, so it
-has none to count. (``index.IndexView.search`` opens its ``score_tile``
-span already.)
+docs-sharded mesh search (``plan=`` raises naming ROADMAP A9).
+
+Telemetry, as in the JAX package: a search opens an ``h2d`` span
+(byte-stamped) around the query block's copy to the device and a
+``score_tile`` span around the tiled search. The JAX package also reads
+the process compile watch around the dispatch, to note a freshly
+compiled search program; a search here compiles nothing (no search
+shape has a program of its own), so it neither reads the watch nor
+notes a compile. The kernel library's build at first GPU use is
+reported to the watch by ``ops/_build.py`` itself.
 """
 
 from __future__ import annotations
@@ -36,14 +40,15 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from tfidf_tpu_torch import obs
 from tfidf_tpu_torch.config import PipelineConfig, VocabMode
 from tfidf_tpu_torch.ingest import _HostCopy
 from tfidf_tpu_torch.io.corpus import Corpus, discover_corpus, pack_corpus
 from tfidf_tpu_torch.ops.hashing import words_to_ids
 from tfidf_tpu_torch.ops.scoring import idf_from_df
-from tfidf_tpu_torch.ops.sparse import (score_tiling, score_topk_tiled,
-                                        sorted_term_counts, sparse_df,
-                                        sparse_scores)
+from tfidf_tpu_torch.ops.sparse import (score_tile_rows, score_tiling,
+                                        score_topk_tiled, sorted_term_counts,
+                                        sparse_df, sparse_scores)
 from tfidf_tpu_torch.ops.tokenize import whitespace_tokenize
 from tfidf_tpu_torch.ops.topk import segment_score_topk
 from tfidf_tpu_torch.pipeline import resolve_device
@@ -586,8 +591,9 @@ class TfidfRetriever:
         try:
             fill_query_matrix(queries, self.config, self._idf_host(),
                               buf.numpy(), scratch=scratch, mode=mode)
-            qmat = (buf.to(self.device, non_blocking=True)
-                    if self.device.type == "cuda" else buf.clone())
+            with obs.span("h2d", bytes=int(buf.nbytes)):
+                qmat = (buf.to(self.device, non_blocking=True)
+                        if self.device.type == "cuda" else buf.clone())
         except BaseException:
             slab.release(slot)
             raise
@@ -625,11 +631,19 @@ class TfidfRetriever:
         kk = min(k, int(self._ids.shape[0]))
         data, cols = self._scorer_face(spec)
         live = self._filter_live(fspec)
+        # The JAX package reads the compile watch here and notes a fresh
+        # search program (note_compile). No search compiles a program,
+        # so neither has a counterpart: a first-use build of the kernel
+        # library is reported to the watch by ops/_build.py.
         qmat, release = self._stage_queries(
             queries, bucket, "counts" if spec.kind == "bm25" else "cosine")
         try:
             if tiled:
-                vals, idx = score_topk_tiled(data, cols, live, qmat, kk)
+                rows = int(data.shape[0])
+                with obs.span("score_tile",
+                              tiles=-(-rows // score_tile_rows(rows)),
+                              rows=rows, queries=int(bucket)):
+                    vals, idx = score_topk_tiled(data, cols, live, qmat, kk)
             else:
                 vals, idx = segment_score_topk(
                     data, cols, self._real_rows() if live is None else live,

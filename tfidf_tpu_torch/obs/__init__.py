@@ -10,9 +10,21 @@ event log with its flight recorder.
   flight recorder: a bounded ring of leveled events and last-N request
   digests, dumped atomically as JSONL.
 
-The JAX package's registry, health, device-monitor and SLO modules
-belong to the serving layer (ROADMAP A8); asking this package for one
-of their members raises ``NotImplementedError`` naming that item.
+* :mod:`~tfidf_tpu_torch.obs.registry` — counter/gauge/histogram
+  registry with Prometheus text exposition and JSON snapshot (the
+  serving metrics live on one).
+* :mod:`~tfidf_tpu_torch.obs.health` — the watchdog deriving ``ok |
+  degraded | unhealthy`` from heartbeats and windowed rates, feeding
+  back into serve admission; :mod:`~tfidf_tpu_torch.obs.slo` — SLO burn
+  gauges.
+* :mod:`~tfidf_tpu_torch.obs.devmon` — CUDA memory gauges, census and
+  watermarks, and the build watchdog.
+* :mod:`~tfidf_tpu_torch.obs.reqtrace` / :mod:`~tfidf_tpu_torch.obs.
+  disttrace` — request ids and fleet trace contexts.
+
+The registry, health, devmon and SLO members load lazily
+(``obs.MetricsRegistry``, ``obs.HealthMonitor``, ...), as in the JAX
+package.
 """
 
 from tfidf_tpu_torch.obs.log import (EventLog, configure_flight, dump_flight,
@@ -33,19 +45,25 @@ __all__ = [
     "set_export_meta", "load_chrome_trace", "spans_by_thread",
     "EventLog", "get_log", "set_log", "log_event", "record_digest",
     "configure_flight", "flight_path", "dump_flight",
+    # lazy (obs.registry / obs.health / obs.devmon / obs.slo):
+    "MetricsRegistry", "Counter", "Gauge", "Histogram",
+    "HealthMonitor", "HealthThresholds", "HealthStatus",
+    "DeviceMonitor", "CompileWatch", "SloTracker",
 ]
 
-# The JAX package's lazily loaded serving-side members (its registry,
-# health, devmon and slo modules).
-_SERVING_MEMBERS = ("MetricsRegistry", "Counter", "Gauge", "Histogram",
-                    "DEFAULT_BUCKETS", "HealthMonitor", "HealthThresholds",
-                    "HealthStatus", "DeviceMonitor", "CompileWatch",
-                    "SloTracker")
 
-
-def __getattr__(name):  # PEP 562
-    if name in _SERVING_MEMBERS:
-        raise NotImplementedError(
-            f"obs.{name} (the serving layer's metrics, health, device "
-            f"monitor and SLO modules) is not ported yet: ROADMAP A8")
+def __getattr__(name):  # PEP 562: the serving-side members load on demand
+    if name in ("MetricsRegistry", "Counter", "Gauge", "Histogram",
+                "DEFAULT_BUCKETS"):
+        from tfidf_tpu_torch.obs import registry
+        return getattr(registry, name)
+    if name in ("HealthMonitor", "HealthThresholds", "HealthStatus"):
+        from tfidf_tpu_torch.obs import health
+        return getattr(health, name)
+    if name in ("DeviceMonitor", "CompileWatch"):
+        from tfidf_tpu_torch.obs import devmon
+        return getattr(devmon, name)
+    if name == "SloTracker":
+        from tfidf_tpu_torch.obs import slo
+        return slo.SloTracker
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,6 +13,9 @@
   ``fast_tokenizer.so`` rule), on the CPU as on the card, at the first
   packer call. The port never writes into ``native/``.
 
+Every build is reported with its wall seconds to the process compile
+watch (``obs.devmon.note_build``; a no-op unless a server installed one).
+
 Both land in ``tfidf_tpu_torch/_build/`` under a name carrying the hash
 of their sources and flags, so an edited source rebuilds and an
 unchanged one loads the existing library. A build writes to a temporary
@@ -173,8 +176,9 @@ def build() -> dict:
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
         os.replace(staged, out)
-    return {"path": str(out), "seconds": time.perf_counter() - t0,
-            "log": "\n".join(log)}
+    seconds = time.perf_counter() - t0
+    _report("kernels", seconds, out)
+    return {"path": str(out), "seconds": seconds, "log": "\n".join(log)}
 
 
 def build_host() -> dict:
@@ -209,8 +213,17 @@ def build_host() -> dict:
         if link.returncode != 0:
             raise RuntimeError(f"{cxx} link failed:\n" + "\n".join(log))
         os.replace(staged, out)
-    return {"path": str(out), "seconds": time.perf_counter() - t0,
-            "log": "\n".join(log)}
+    seconds = time.perf_counter() - t0
+    _report("host", seconds, out)
+    return {"path": str(out), "seconds": seconds, "log": "\n".join(log)}
+
+
+def _report(program: str, seconds: float, out: Path) -> None:
+    """Hand one finished build to the process compile watch
+    (``obs/devmon.py``): these builds are the port's only compile site,
+    so a build after the serve warm-up is a recompile after warm."""
+    from tfidf_tpu_torch.obs import devmon
+    devmon.note_build(program, seconds, library=out.name)
 
 
 def load_host() -> ctypes.CDLL:

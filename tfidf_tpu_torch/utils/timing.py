@@ -1,5 +1,6 @@
-"""Phase timing (port of ``tfidf_tpu/utils/timing.py``'s ``PhaseTimer``
-and ``PhaseTimedMixin``).
+"""Phase timing and the latency histogram (port of
+``tfidf_tpu/utils/timing.py``'s ``PhaseTimer``, ``PhaseTimedMixin`` and
+``LatencyHistogram``).
 
 On a CUDA device each phase is timed with a pair of CUDA events on the
 current stream and ends with ``torch.cuda.synchronize()``, so a phase
@@ -11,8 +12,9 @@ synchronisation is added.
 from __future__ import annotations
 
 import contextlib
+import math
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -74,3 +76,227 @@ class PhaseTimedMixin:
         if self.device.type == "cuda":
             return _cuda_phase(self.timer, name, self.device)
         return self.timer.phase(name)
+
+
+class LatencyHistogram:
+    """Geometric-bucket latency histogram with percentile queries.
+
+    Samples land in buckets whose bounds grow by ``1 + resolution``
+    per step (default 2%), so ``percentile(p)`` is accurate to the
+    bucket resolution over the whole [lo, hi) range at O(1) memory —
+    the shape a long-running server needs (the serving layer records
+    every request into one of these; ``serve/metrics.py``). Count,
+    sum, min and max are tracked exactly; out-of-range samples clamp
+    into the edge buckets but still carry exact min/max.
+
+    Not thread-safe by itself; :class:`~tfidf_tpu_torch.serve.metrics.
+    ServeMetrics` serializes access under its own lock.
+    """
+
+    def __init__(self, lo: float = 1e-6, hi: float = 1e3,
+                 resolution: float = 0.02,
+                 exemplars: bool = False) -> None:
+        if not (0 < lo < hi):
+            raise ValueError("need 0 < lo < hi")
+        if resolution <= 0:
+            raise ValueError("resolution must be positive")
+        self._lo = lo
+        self._hi = hi
+        self._resolution = resolution
+        self._log_step = math.log1p(resolution)
+        n = int(math.ceil(math.log(hi / lo) / self._log_step)) + 1
+        self._counts = [0] * (n + 1)  # +1: underflow bucket at index 0
+        self._count = 0
+        self._sum = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+        # Exemplars: the LAST request id to land in each
+        # bucket, kept as {bucket_idx: (exemplar, seconds)} — O(live
+        # buckets) memory, and what links "p99 got worse" to one
+        # replayable trace (OpenMetrics exemplar exposition in
+        # obs/registry.py). None = feature off (zero cost).
+        self._exemplars: Optional[Dict[int, Tuple[str, float]]] = (
+            {} if exemplars else None)
+
+    def record(self, seconds: float,
+               exemplar: Optional[str] = None) -> None:
+        if seconds < 0:
+            seconds = 0.0
+        self._count += 1
+        self._sum += seconds
+        self._min = min(self._min, seconds)
+        self._max = max(self._max, seconds)
+        if seconds < self._lo:
+            idx = 0
+        else:
+            idx = 1 + int(math.log(seconds / self._lo) / self._log_step)
+            idx = min(idx, len(self._counts) - 1)
+        self._counts[idx] += 1
+        if self._exemplars is not None and exemplar is not None:
+            self._exemplars[idx] = (exemplar, seconds)
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum_seconds(self) -> float:
+        """Exact sum of every recorded sample (Prometheus ``_sum``)."""
+        return self._sum
+
+    @property
+    def mean(self) -> float:
+        return self._sum / self._count if self._count else 0.0
+
+    @property
+    def min(self) -> float:
+        return self._min if self._count else 0.0
+
+    @property
+    def max(self) -> float:
+        return self._max if self._count else 0.0
+
+    def percentile(self, p: float) -> float:
+        """Latency at percentile ``p`` in [0, 100] (nearest-rank over
+        buckets; within-bucket values report the bucket's geometric
+        midpoint, clamped to the exact observed min/max)."""
+        if not 0 <= p <= 100:
+            raise ValueError(f"percentile {p} outside [0, 100]")
+        if not self._count:
+            return 0.0
+        rank = max(1, int(math.ceil(p / 100.0 * self._count)))
+        # The extreme ranks are tracked exactly — no bucket rounding.
+        if rank <= 1:
+            return self._min
+        if rank >= self._count:
+            return self._max
+        seen = 0
+        for idx, c in enumerate(self._counts):
+            seen += c
+            if seen >= rank:
+                if idx == 0:
+                    mid = self._lo / 2
+                else:
+                    mid = self._lo * math.exp((idx - 0.5) * self._log_step)
+                return min(max(mid, self._min), self._max)
+        return self._max  # unreachable: ranks are <= count
+
+    def cumulative(self, bounds: List[float]) -> List[int]:
+        """Cumulative sample counts at each upper bound — the shape a
+        Prometheus histogram exposition needs (``le`` buckets). A
+        sample counts toward bound ``b`` when its geometric bucket's
+        upper edge is <= ``b``, so counts are monotone in ``bounds``
+        and accurate to the bucket resolution; the clamped top bucket
+        (and the exact total) only ever land on ``+Inf``, which the
+        caller appends itself (``obs.registry``)."""
+        uppers = [self._lo * math.exp(i * self._log_step)
+                  for i in range(len(self._counts) - 1)]
+        out = []
+        for b in bounds:
+            out.append(sum(c for up, c in zip(uppers, self._counts)
+                           if up <= b))
+        return out
+
+    def merge(self, other: "LatencyHistogram") -> "LatencyHistogram":
+        """Fold ``other``'s samples into this histogram in place — the
+        aggregation primitive per-process metrics need (N server
+        processes each keep their own histogram; a scraper merges them
+        into one distribution). Exact for count/sum/min/max; bucket
+        counts add elementwise, so percentiles of the merge are as
+        accurate as either input's bucket resolution. Requires
+        identical bucket geometry (same lo/resolution/range) — merging
+        across geometries would need resampling, which silently loses
+        resolution, so it raises instead. Returns ``self``."""
+        if (self._lo != other._lo
+                or self._log_step != other._log_step
+                or len(self._counts) != len(other._counts)):
+            raise ValueError(
+                "cannot merge LatencyHistograms with different bucket "
+                f"geometry (lo {self._lo} vs {other._lo}, step "
+                f"{self._log_step:.6g} vs {other._log_step:.6g}, "
+                f"buckets {len(self._counts)} vs {len(other._counts)})")
+        for i, c in enumerate(other._counts):
+            self._counts[i] += c
+        self._count += other._count
+        self._sum += other._sum
+        self._min = min(self._min, other._min)
+        self._max = max(self._max, other._max)
+        # Exemplars survive aggregation: the other side's (newer, in
+        # the replica-poll sense) entries win per bucket — one
+        # replayable rid per bucket is the contract, not a history.
+        if self._exemplars is not None and other._exemplars:
+            self._exemplars.update(other._exemplars)
+        return self
+
+    def exemplars(self) -> List[Tuple[float, str]]:
+        """``(seconds, rid)`` per live exemplar bucket, ascending by
+        latency — empty when the feature is off."""
+        if not self._exemplars:
+            return []
+        return sorted((secs, rid)
+                      for rid, secs in self._exemplars.values())
+
+    def state_dict(self) -> Dict:
+        """Wire-format state for cross-process aggregation (the
+        ``obs_export`` bundle): geometry + sparse bucket counts +
+        exact count/sum/min/max + exemplars. :meth:`from_state`
+        rebuilds an identical histogram, so ``merge`` federates
+        replicas without sharing memory."""
+        state = {
+            "lo": self._lo, "hi": self._hi,
+            "resolution": self._resolution,
+            "n_buckets": len(self._counts),
+            "counts": {str(i): c for i, c in enumerate(self._counts)
+                       if c},
+            "count": self._count, "sum": self._sum,
+        }
+        if self._count:
+            state["min"] = self._min
+            state["max"] = self._max
+        if self._exemplars:
+            state["exemplars"] = {
+                str(i): [rid, secs]
+                for i, (rid, secs) in self._exemplars.items()}
+        return state
+
+    @classmethod
+    def from_state(cls, state: Dict) -> "LatencyHistogram":
+        h = cls(lo=state["lo"], hi=state["hi"],
+                resolution=state["resolution"],
+                exemplars="exemplars" in state)
+        if len(h._counts) != state["n_buckets"]:
+            raise ValueError(
+                f"histogram state geometry mismatch: rebuilt "
+                f"{len(h._counts)} buckets, state carries "
+                f"{state['n_buckets']}")
+        for i, c in state.get("counts", {}).items():
+            h._counts[int(i)] = int(c)
+        h._count = int(state["count"])
+        h._sum = float(state["sum"])
+        if h._count:
+            h._min = float(state["min"])
+            h._max = float(state["max"])
+        for i, (rid, secs) in state.get("exemplars", {}).items():
+            h._exemplars[int(i)] = (rid, float(secs))
+        return h
+
+    def as_dict(self, ndigits: int = 6) -> Dict[str, float]:
+        """JSON-artifact form: count/mean/min/max plus p50/p95/p99."""
+        return {
+            "count": self._count,
+            "mean": round(self.mean, ndigits),
+            "min": round(self.min, ndigits),
+            "max": round(self.max, ndigits),
+            "p50": round(self.percentile(50), ndigits),
+            "p95": round(self.percentile(95), ndigits),
+            "p99": round(self.percentile(99), ndigits),
+        }
+
+    def reset(self) -> None:
+        self._counts = [0] * len(self._counts)
+        self._count = 0
+        self._sum = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+        if self._exemplars is not None:
+            self._exemplars.clear()
