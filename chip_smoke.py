@@ -14,7 +14,8 @@ Phases, each printed as one JSON line:
    every term; rows whose head slots all score the same, rows with
    exactly k, k - 1 or 5 head slots, rows with none) and rows of 16,384
    slots (Zipf rows, and uniform rows with more head slots than a warp's
-   shared-memory list, which take the rescoring path); its yardstick is
+   shared-memory list, which take the per-lane column path at k 16 and
+   64 and the rescan path at k 65); its yardstick is
    ``torch.topk`` of a precomputed ``sparse_scores`` block (the selection
    half only). B2 (TF/DF) runs through the wrapper and as its launch
    alone into outputs filled with -1 first, on the dense batch with and
@@ -119,7 +120,33 @@ Phases, each printed as one JSON line:
    8,192-doc base gives the same searches on the card and the CPU.
    Prints mutated docs/s, view-build ms, search ms on a multi-segment
    view and after the compaction, the pause and B6's launches a search.
-13. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
+13. ``path_exact_terms``: ``rerank.exact_terms_lines`` (k 16, doc_len
+   256, chunks of 32,768, the ``cli run --exact-terms`` config: V 2^16,
+   a 4 x k margin) on the 131,072 ingest documents: the device-exact
+   engine cold, then warm with its launches counted (B4 every chunk of
+   the intern wire, B1 in the exact-ids finish); the hashed re-rank
+   engine at V 4,096 (more words than buckets: the intern table
+   overflows, the ids-only ingest runs with B4 and B1); on the
+   32,768-doc directory the card's lines equal the CPU's byte for byte,
+   every line is a line of the native bit-reference's output
+   (``native/tfidf_ref.cc``, built by ``ops/_build.py``), the exact
+   recall is 1.0 on every doc, and the hashed engine's recall is
+   printed; ``ingest.profile_resident`` on the ragged wire; a device
+   profile of one warm device-exact run; ``python -m tfidf_tpu_torch.cli
+   run --exact-terms`` in a subprocess without ``--device`` writes the
+   library's bytes on cuda. Prints docs/s, the ingest's phases and the
+   native emit's seconds.
+14. ``path_chargram``: BASELINE config 4 (char 3..5-grams) over 8,192
+   source files already on the machine (the repository's, then the
+   installed torch, numpy and scipy ``.py`` files, sorted paths, the
+   first 4,096 bytes of each) through ``TfidfPipeline.run``: the sparse
+   lowering at V 2^20 (explicit engine: B1, the pair wire) and the
+   dense one at V 2^16 (defaulted engine: the scatter histogram, a
+   stable sort, B3 on the packed wire); docSize is the n-gram count;
+   each engine's run on the first 1,024 docs equals the CPU's bit for
+   bit; docs/s, MB/s and a device profile of one warm run each; B1 at
+   the chargram's row width (12,288 slots) against its plain version.
+15. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
    131,072-doc index at ``ServeConfig`` defaults (max_batch 256), warmed
    over every query bucket, under 8 client threads of 32 requests each
    (1-4 of the Zipf queries, k 10, tfidf / bm25 / tfidf + id_range in
@@ -654,7 +681,7 @@ def kernel_phase(K):
     b1_case("tie_heavy_float16", ti, tc, th, tl, flat_idf.half())
     # Rows too long for shared memory. Zipf rows mostly fit the warp's
     # list (2,048 slots); uniform ids over 2^16 give more head slots than
-    # that, so those rows take the kernel's rescoring path.
+    # that, so those rows take its path for rows past the list.
     ltoks, llens = zipf_tokens(rng, 64, 16384, SPARSE_VOCAB)
     lt, lc, lh = sorted_term_counts(torch.from_numpy(ltoks).to(dev),
                                     torch.from_numpy(llens).to(dev))
@@ -665,6 +692,10 @@ def kernel_phase(K):
     ulens[::2] = 3000
     ut, uc, uh = sorted_term_counts(utoks, ulens)
     b1_case("long_rows_uniform", ut, uc, uh, ulens, idf)
+    # k 64: the lanes' columns fill the composite buffer; k 65: the
+    # rescan path past it
+    b1_case("long_rows_uniform_k64", ut, uc, uh, ulens, idf, k=64)
+    b1_case("long_rows_uniform_k65", ut, uc, uh, ulens, idf, k=65)
     d, length = ids.shape
     # What this batch needs: lengths, head at every slot (it alone says
     # which slots score), ids and counts at head slots only, idf at the
@@ -1904,6 +1935,351 @@ def path_segmented(T, K, corpus_docs, queries, total):
           "ok": True})
 
 
+# --- path_exact_terms: the exact-terms mode, both engines ---------------
+
+EXACT_HASHED_VOCAB = 4096  # path_exact_terms: fewer buckets than words
+CHARGRAM_FILES = 8192      # path_chargram: source files, sorted paths
+CHARGRAM_BYTES = 4096      # path_chargram: bytes kept a file (chargram_bench)
+CHARGRAM_CPU_DOCS = 1024   # path_chargram: docs held against the CPU run
+CHARGRAM_SPARSE_VOCAB = 1 << 20
+
+
+@contextlib.contextmanager
+def returned_calls(owner, name: str):
+    """Inside the block, every call of ``owner.<name>`` appends
+    ``(host seconds, returned value)`` to the yielded list."""
+    real = getattr(owner, name)
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, real)
+
+
+def _exact_cfg(T, vocab: int):
+    """The hashed top-k config of ``cli run --exact-terms --topk 16``:
+    a 4 x k margin selection (the device-exact engine uses k + 8)."""
+    return T.PipelineConfig(vocab_mode=T.VocabMode.HASHED, vocab_size=vocab,
+                            max_doc_len=DOC_LEN, doc_chunk=DOC_LEN,
+                            topk=4 * TOPK, engine="sparse")
+
+
+def path_exact_terms(T, K, FT, ingest, big, small, total):
+    """``rerank.exact_terms_lines`` on the card: the device-exact engine
+    on the 131,072-doc directory (cold, then warm with its launches
+    counted: B4 every chunk, B1 in the finish), the hashed re-rank
+    engine at V 4,096 (more words than buckets: the intern table
+    overflows and the ids-only ingest runs, B4 and B1), and on the
+    32,768-doc directory the card's lines equal to the CPU's, every line
+    in the native oracle's output, exact recall 1.0 on every doc, the
+    hashed engine's recall, ``profile_resident`` on the ragged wire and
+    ``cli run --exact-terms`` in a subprocess on cuda."""
+    from tfidf_tpu_torch import rerank
+    from tfidf_tpu_torch.ops import _build
+    from tfidf_tpu_torch.recall import exact_doc_recall, parse_oracle_output
+
+    t_phase = time.perf_counter()
+    n = INGEST_DOCS
+    cfg = _exact_cfg(T, SPARSE_VOCAB)
+
+    def lines_of(root, c, **kw):
+        return rerank.exact_terms_lines(root, c, TOPK, doc_len=DOC_LEN,
+                                        chunk_docs=N_DOCS, **kw)
+
+    t0 = time.perf_counter()
+    lines_of(big, cfg)  # cold: the first run pays its set-up
+    cold_s = time.perf_counter() - t0
+    with returned_calls(ingest, "run_overlapped_exact") as ingests, \
+            returned_calls(FT.InternSession, "emit") as emits:
+        (lines, engine, _), wall, launches, _ = _counted_run(
+            K, FT, lambda: lines_of(big, cfg))
+    for kernel, c in launches.items():
+        total[kernel] += c
+    check(engine == "device-exact", f"path_exact_terms: engine {engine}")
+    for k_ in ("ragged_rebuild", "fused_score_topk"):
+        check(launches[k_] > 0, f"path_exact_terms: {k_} never launched")
+    exact = ingests[0][1]
+    check(exact.num_docs == n and len(exact.words) <= N_WORDS,
+          "path_exact_terms: device-exact ingest fields")
+    device_exact = {"docs": n, "cold_s": cold_s, "warm_wall_s": wall,
+                    "docs_per_s": n / wall, "launches": launches,
+                    "ingest_s": ingests[0][0], "emit_s": emits[0][0],
+                    "phases": exact.phases, "distinct_words":
+                        len(exact.words), "lines": lines.count(b"\n"),
+                    "bytes": len(lines)}
+
+    hcfg = _exact_cfg(T, EXACT_HASHED_VOCAB)
+    with returned_calls(ingest, "run_overlapped") as ids_runs:
+        (hlines, hengine, _), hwall, hlaunches, _ = _counted_run(
+            K, FT, lambda: lines_of(big, hcfg))
+    for kernel, c in hlaunches.items():
+        total[kernel] += c
+    check(hengine == "hashed-rerank", f"path_exact_terms: V "
+          f"{EXACT_HASHED_VOCAB} took the {hengine} engine")
+    r = ids_runs[0][1]
+    check(r.topk_vals is None and r.result_wire == "pair"
+          and r.path == "resident",
+          f"path_exact_terms: the hashed engine's ingest {_result_fields(r)}")
+    for k_ in ("ragged_rebuild", "fused_score_topk"):
+        check(hlaunches[k_] > 0, f"path_exact_terms: hashed engine: {k_} "
+              f"never launched")
+    hashed = {"docs": n, "vocab": EXACT_HASHED_VOCAB, "wall_s": hwall,
+              "docs_per_s": n / hwall, "launches": hlaunches,
+              "ingest_s": ids_runs[0][0], "ids_only_fields": _result_fields(r),
+              "lines": hlines.count(b"\n")}
+
+    # 32,768 docs: card = CPU, the oracle, recall, the profiler, the CLI.
+    # The card's run is profiled; then the native oracle and the CLI run
+    # in subprocesses while the CPU run, the hashed engine and the phase
+    # profile run here.
+    names = [f"doc{i}" for i in range(1, N_DOCS + 1)]
+    small_out = []
+    K.reset_launches()
+    device_profile = profile_summary(
+        lambda: small_out.append(lines_of(small, cfg)), warm_up=False)
+    slaunches = dict(K.LAUNCHES)
+    for kernel, c in slaunches.items():
+        total[kernel] += c
+    lines_s, _, sample = small_out[0]
+    prof_cfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                                vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                                doc_chunk=DOC_LEN, topk=TOPK)
+
+    def timed_run(cmd, **kw):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, timeout=600, **kw)
+        return proc, time.perf_counter() - t0
+
+    import concurrent.futures as cf
+    with tempfile.TemporaryDirectory() as tmp, \
+            cf.ThreadPoolExecutor(max_workers=2) as ex:
+        oracle_out = os.path.join(tmp, "oracle.txt")
+        cli_out = os.path.join(tmp, "exact.txt")
+        oracle_job = ex.submit(
+            timed_run, [str(_build.load_oracle()), small, oracle_out, "8"],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        cli_job = ex.submit(
+            timed_run, [sys.executable, "-m", "tfidf_tpu_torch.cli", "run",
+                        "--input", small, "--output", cli_out,
+                        "--vocab-mode", "hashed", "--topk", str(TOPK),
+                        "--doc-len", str(DOC_LEN), "--exact-terms",
+                        "--timing"],
+            capture_output=True, text=True, cwd=REPO,
+            env={**os.environ, "PYTHONPATH": REPO})
+        t0 = time.perf_counter()
+        cpu_lines, cpu_engine, _ = lines_of(small, cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(cpu_engine == "device-exact" and cpu_lines == lines_s,
+              "path_exact_terms: the card's lines differ from the CPU's")
+        hl, _, hsample = lines_of(small, hcfg)
+        K.reset_launches()
+        resident_profile = ingest.profile_resident(small, prof_cfg,
+                                                   chunk_docs=STREAM_CHUNK,
+                                                   doc_len=DOC_LEN)
+        for kernel, c in K.LAUNCHES.items():
+            total[kernel] += c
+        oracle, oracle_s = oracle_job.result()
+        check(oracle.returncode == 0, f"path_exact_terms: the native oracle "
+              f"exited {oracle.returncode}: {oracle.stderr[-2000:]}")
+        with open(oracle_out, "rb") as f:
+            oracle_lines = f.read().splitlines()
+        ref = parse_oracle_output(oracle_out)
+        proc, cli_s = cli_job.result()
+        check(proc.returncode == 0, f"path_exact_terms: cli run exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(cli_out, "rb") as f:
+            check(f.read() == lines_s, "path_exact_terms: cli run "
+                  "--exact-terms differs from the library's lines")
+    got = lines_s.splitlines()
+    check(len(got) > N_DOCS and set(got) <= set(oracle_lines),
+          "path_exact_terms: a line is not in the native oracle's output")
+    per = sample(names)
+    rec = [exact_doc_recall(ref.get(nm, []), [w for w, _ in per[nm]], TOPK)
+           for nm in names]
+    defined = [x for x in rec if x is not None]
+    check(len(defined) > N_DOCS // 2 and all(x == 1.0 for x in defined),
+          f"path_exact_terms: exact recall below 1.0 "
+          f"(min {min(defined, default=None)})")
+    hper = hsample(names)
+    hrec = [exact_doc_recall(ref.get(nm, []), [w for w, _ in hper[nm]], TOPK)
+            for nm in names]
+    hrec = [x for x in hrec if x is not None]
+    check("engine: device-exact" in proc.stderr,
+          f"path_exact_terms: cli engine: {proc.stderr[-400:]}")
+    emit({"phase": "path_exact_terms", "k": TOPK, "doc_len": DOC_LEN,
+          "chunk_docs": N_DOCS, "device_exact": device_exact,
+          "hashed_rerank": hashed,
+          "small": {"docs": N_DOCS, "launches": slaunches,
+                    "cpu_s": cpu_s, "card_equals_cpu": True,
+                    "oracle_s": oracle_s, "lines_in_oracle": True,
+                    "exact_recall": 1.0, "recall_docs": len(defined),
+                    "hashed_rerank_recall_mean": float(np.mean(hrec)),
+                    "hashed_rerank_recall_min": float(np.min(hrec)),
+                    "hashed_rerank_lines": hl.count(b"\n"),
+                    "profile_resident_ragged": resident_profile,
+                    "device_profile_device_exact": device_profile},
+          "cli": {"docs": N_DOCS, "seconds": cli_s, "bytes_equal": True,
+                  "device": "cuda", "stderr_tail": proc.stderr[-400:]},
+          "beside_the_oracle_and_cli": ["cpu run", "hashed engine",
+                                        "profile_resident"],
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+
+
+# --- path_chargram: the device chargram on source files -----------------
+
+def chargram_corpus(Corpus):
+    """Up to CHARGRAM_FILES files in sorted path order (as many as the
+    machine holds, if fewer), the first CHARGRAM_BYTES bytes of each: the
+    repository's own *.py/*.cc/*.h/*.cu/*.md (no directory that
+    .gitignore lists), then the .py files of the installed torch, numpy
+    and scipy packages. Nothing is downloaded. Returns the corpus and
+    where its files came from."""
+    import importlib.util
+
+    def walk(root, exts, skip=()):
+        found = []
+        for dirpath, dirnames, files in os.walk(root):
+            dirnames[:] = [d for d in dirnames if d not in skip]
+            found += [os.path.join(dirpath, f) for f in files
+                      if f.endswith(exts)]
+        return sorted(found)
+
+    with open(os.path.join(REPO, ".gitignore")) as f:  # build outputs
+        ignored = {ln.strip().rstrip("/").rsplit("/", 1)[-1] for ln in f
+                   if ln.strip().endswith("/")}
+    paths = walk(REPO, (".py", ".cc", ".h", ".cu", ".md"),
+                 ignored | {".git"})
+    sources = {"repo": len(paths)}
+    for pkg in ("torch", "numpy", "scipy"):
+        spec = importlib.util.find_spec(pkg)
+        more = (walk(os.path.dirname(spec.origin), (".py",))
+                if spec and spec.origin else [])
+        sources[pkg] = len(more)
+        paths += more
+    paths = paths[:CHARGRAM_FILES]
+    docs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            docs.append(f.read(CHARGRAM_BYTES))
+    return Corpus(names=[f"doc{i}" for i in range(1, len(docs) + 1)],
+                  docs=docs), sources
+
+
+def chargram_triples(corpus):
+    """The sparse chargram's sorted triples of ``corpus`` on the card at
+    V 2^20 (3..5-grams): ``(ids, counts, head, docSize, idf)``, the
+    inputs B1 gets on that path."""
+    from tfidf_tpu_torch import pipeline as P
+    from tfidf_tpu_torch.io.corpus import pack_bytes
+    from tfidf_tpu_torch.ops.scoring import idf_from_df
+    from tfidf_tpu_torch.ops.sparse import sorted_term_counts_masked, sparse_df
+
+    dev = torch.device("cuda")
+    packed = pack_bytes(corpus)
+    ids, valid, tlen = P._ngram_streams(
+        torch.from_numpy(packed.byte_ids).to(dev),
+        torch.from_numpy(packed.byte_lengths).to(dev),
+        vocab_size=CHARGRAM_SPARSE_VOCAB, ngram_lo=3, ngram_hi=5, seed=0)
+    s_ids, counts, head = sorted_term_counts_masked(ids, valid)
+    idf = idf_from_df(sparse_df(s_ids, head, CHARGRAM_SPARSE_VOCAB),
+                      len(corpus), torch.float32)
+    return s_ids, counts, head, tlen, idf
+
+
+def path_chargram(T, K, FT, total):
+    """BASELINE config 4 on the card: char 3..5-gram TF-IDF over source
+    files through ``TfidfPipeline.run`` (the device chargram): the sparse
+    lowering at V 2^20 (explicit engine, B1, the pair wire) and the dense
+    one at V 2^16 (defaulted engine, B3 on the packed wire); each held
+    bit for bit against the CPU run on the first 1,024 docs; B1 timed at
+    the chargram's row width; a device profile of one warm run each."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    corpus, sources = chargram_corpus(T.Corpus)
+    read_s = time.perf_counter() - t0
+    n = len(corpus)
+    n_bytes = sum(map(len, corpus.docs))
+    check(n >= CHARGRAM_CPU_DOCS, f"path_chargram: only {n} source files")
+    cfgs = {"sparse": T.PipelineConfig(
+                vocab_mode=T.VocabMode.HASHED, tokenizer=T.TokenizerKind.CHARGRAM,
+                vocab_size=CHARGRAM_SPARSE_VOCAB, topk=TOPK, engine="sparse"),
+            "dense": T.PipelineConfig(
+                vocab_mode=T.VocabMode.HASHED, tokenizer=T.TokenizerKind.CHARGRAM,
+                vocab_size=SPARSE_VOCAB, topk=TOPK)}
+    expect = {"sparse": "fused_score_topk", "dense": "pack_words"}
+    small = T.Corpus(names=corpus.names[:CHARGRAM_CPU_DOCS],
+                     docs=corpus.docs[:CHARGRAM_CPU_DOCS])
+    out = {}
+    for name, cfg in cfgs.items():
+        pipe = T.TfidfPipeline(cfg)
+        pipe.run(corpus)  # cold
+        r, wall, launches, _ = _counted_run(K, FT, lambda: pipe.run(corpus))
+        for kernel, c in launches.items():
+            total[kernel] += c
+        check(launches[expect[name]] > 0,
+              f"path_chargram {name}: {expect[name]} never launched")
+        if name == "sparse":
+            check(launches["pack_words"] == 0, "path_chargram sparse: the "
+                  "pair wire was not used past 2^16")
+        else:
+            check(launches["tf_df"] == 0 and launches["fused_score_topk"] == 0,
+                  f"path_chargram dense: not the dense lowering {launches}")
+        check(r.topk_ids.shape == (n, TOPK) and np.isfinite(r.topk_vals).all()
+              and (r.topk_vals >= 0).all() and r.df.shape == (cfg.vocab_size,),
+              f"path_chargram {name}: bad result")
+        want_len = sum(np.maximum(np.array([len(d) for d in corpus.docs])
+                                  - (m - 1), 0) for m in (3, 4, 5))
+        check(np.array_equal(r.lengths, want_len),
+              f"path_chargram {name}: docSize is not the n-gram count")
+        gpu_small = pipe.run(small)
+        cpu_small = T.TfidfPipeline(cfg, device="cpu").run(small)
+        check(np.array_equal(gpu_small.df, cpu_small.df)
+              and np.array_equal(gpu_small.lengths, cpu_small.lengths)
+              and np.array_equal(gpu_small.topk_ids, cpu_small.topk_ids)
+              and np.array_equal(np.asarray(gpu_small.topk_vals).view(np.uint8),
+                                 np.asarray(cpu_small.topk_vals).view(np.uint8)),
+              f"path_chargram {name}: the card's run on {CHARGRAM_CPU_DOCS} "
+              f"docs differs from the CPU's")
+        out[name] = {"vocab": cfg.vocab_size, "warm_wall_s": wall,
+                     "docs_per_s": n / wall, "mb_per_s": n_bytes / wall / 1e6,
+                     "launches": launches,
+                     "result_wire": "pair" if name == "sparse" else "packed",
+                     "cpu_bit_equal_docs": CHARGRAM_CPU_DOCS,
+                     "device_profile": profile_summary(
+                         lambda: pipe.run(corpus), warm_up=False)}
+    # B1 at the chargram's shape: the corpus's rows of 3 x 4,096 slots
+    s_ids, counts, head, tlen, idf = chargram_triples(corpus)
+    kv, kt = K.fused_score_topk(s_ids, counts, head, tlen, idf, k=TOPK)
+    pv, pt = K.fused_score_topk_plain(s_ids, counts, head, tlen, idf, k=TOPK)
+    check(torch.equal(kt, pt) and same_bits(kv, pv),
+          "path_chargram: B1 at the chargram shape differs from plain")
+    d, length = s_ids.shape
+    n_head = int(head.sum())
+    n_idf = int(torch.unique(s_ids[head]).numel())
+    b1_bytes = (d * 4 + d * length + n_head * 8 + n_idf * 4
+                + d * TOPK * 8)
+    b1 = {"shape": [d, length], "k": TOPK, "head_slots": n_head,
+          "ms": device_span_ms(lambda: K.fused_score_topk(
+              s_ids, counts, head, tlen, idf, k=TOPK)),
+          "plain_ms": device_span_ms(lambda: K.fused_score_topk_plain(
+              s_ids, counts, head, tlen, idf, k=TOPK)),
+          "bound_ms": bound_ms(b1_bytes), "bound_by": "bytes",
+          "ids_equal": True, "scores_bit_equal": True}
+    emit({"phase": "path_chargram", "docs": n, "bytes": n_bytes,
+          "max_bytes": CHARGRAM_BYTES, "ngram": [3, 5], "topk": TOPK,
+          "slots_per_row": length, "sources": sources, "read_s": read_s,
+          "engines": out, "b1_at_chargram_shape": b1,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+
+
 # --- path_serve: TfidfServer over the retrieval index, cli serve ------
 
 SERVE_THREADS = 8         # path_serve: client threads
@@ -2486,6 +2862,8 @@ def main() -> int:
         b6_kernel_cases(K, R, r, rcfg, queries, summary)
         path_stream(T, K, small, big_docs, rg.df, total)
         path_segmented(T, K, big_docs, queries, total)
+        path_exact_terms(T, K, FT, ingest, big, small, total)
+        path_chargram(T, K, FT, total)
         # last: its profile of a multi-threaded load runs after every
         # other profile of the script
         path_serve(T, K, r, rcfg, queries, small, corpus, total)

@@ -78,7 +78,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tfidf_tpu_torch/obs/slo.py",
                  "tfidf_tpu_torch/obs/reqtrace.py",
                  "tfidf_tpu_torch/obs/disttrace.py",
-                 "tfidf_tpu_torch/obs/devmon.py"):
+                 "tfidf_tpu_torch/obs/devmon.py",
+                 # the exact-terms slice: jax-free copies of the JAX
+                 # package's re-rank and recall modules
+                 "tfidf_tpu_torch/rerank.py",
+                 "tfidf_tpu_torch/recall.py"):
         assert path in rel
     offenders = []
     for path in files:
@@ -316,6 +320,42 @@ def test_streaming_and_index_without_gpu_raise(no_gpu, toy_corpus_dir,
     assert cli.main(args + ["--device", "cpu"]) == 0 and out.exists()
 
 
+def test_exact_and_chargram_without_gpu_raise(no_gpu, toy_corpus_dir,
+                                              tmp_path, capsys):
+    from tfidf_tpu_torch import ingest, rerank
+    cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
+    calls = [
+        lambda **kw: ingest.run_overlapped_exact(toy_corpus_dir, cfg, **kw),
+        lambda **kw: ingest.profile_resident(toy_corpus_dir, cfg,
+                                             doc_len=16, **kw),
+        lambda **kw: rerank.exact_terms_lines(toy_corpus_dir, cfg, 2,
+                                              doc_len=16, **kw),
+        lambda **kw: rerank.exact_terms(toy_corpus_dir, cfg, 2, doc_len=16,
+                                        **kw),
+        lambda **kw: ingest.run_overlapped(toy_corpus_dir, cfg,
+                                           wire_vals=False, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(device="cuda")
+        call(device="cpu")
+    chargram = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3,
+                                tokenizer=TokenizerKind.CHARGRAM)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.TfidfPipeline(chargram)
+    for i, extra in enumerate((["--doc-len", "16", "--exact-terms"],
+                               ["--exact-terms"], ["--tokenizer", "chargram"])):
+        out = tmp_path / f"o{i}.txt"
+        args = ["run", "--input", toy_corpus_dir, "--output", str(out),
+                "--vocab-mode", "hashed", "--topk", "3", *extra]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(args)
+        assert not out.exists() and capsys.readouterr().out == ""
+        assert cli.main(args + ["--device", "cpu"]) == 0 and out.exists()
+        assert "wrote" in capsys.readouterr().out
+
+
 class TestNotPortedYet:
     def test_mesh(self, toy_corpus_dir):
         pipe = T.TfidfPipeline(T.PipelineConfig(mesh_shape={"docs": 2}),
@@ -324,11 +364,25 @@ class TestNotPortedYet:
             pipe.run(T.discover_corpus(toy_corpus_dir))
 
     def test_device_chargram(self, toy_corpus_dir):
+        # Ported now: a CHARGRAM hashed top-k config runs the device
+        # chargram, the same df, docSize and picks as the JAX package's
+        # (both engines held in tests/test_torch_chargram.py).
+        from tfidf_tpu.config import PipelineConfig as JConfig
+        from tfidf_tpu.config import TokenizerKind as JTok
+        from tfidf_tpu.config import VocabMode as JV
+        from tfidf_tpu.io.corpus import discover_corpus
+        from tfidf_tpu.pipeline import TfidfPipeline as JPipeline
         cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3,
-                               tokenizer=TokenizerKind.CHARGRAM)
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            T.TfidfPipeline(cfg, device="cpu").run(
-                T.discover_corpus(toy_corpus_dir))
+                               tokenizer=TokenizerKind.CHARGRAM,
+                               result_wire="pair")
+        got = T.TfidfPipeline(cfg, device="cpu").run(
+            T.discover_corpus(toy_corpus_dir))
+        want = JPipeline(JConfig(vocab_mode=JV.HASHED, topk=3,
+                                 tokenizer=JTok.CHARGRAM)).run(
+            discover_corpus(toy_corpus_dir))
+        for field in ("df", "lengths", "topk_ids", "topk_vals"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          np.asarray(getattr(want, field)))
 
     def test_ragged_batch(self):
         # Ported now: the port's RaggedBatch runs (equal to its padded
@@ -394,10 +448,23 @@ class TestNotPortedYet:
         ({"shard": (0, 1)}, "ROADMAP A9"),
         ({"df_merge": lambda df: df}, "ROADMAP A9"),
         ({"total_docs": 4}, "ROADMAP A9"),
-        ({"wire_vals": False}, "ROADMAP A5"),
+        # ported now: runs and equals the JAX package's ids-only ingest
+        pytest.param({"wire_vals": False}, None, id="kw4-ROADMAP A5"),
     ])
     def test_run_overlapped_options(self, toy_corpus_dir, kw, item):
         from tfidf_tpu_torch.ingest import run_overlapped
         cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
+        if item is None:
+            from tfidf_tpu.config import PipelineConfig as JConfig
+            from tfidf_tpu.config import VocabMode as JV
+            from tfidf_tpu.ingest import run_overlapped as jax_run
+            got = run_overlapped(toy_corpus_dir, cfg, doc_len=16,
+                                 device="cpu", **kw)
+            want = jax_run(toy_corpus_dir, JConfig(vocab_mode=JV.HASHED,
+                                                   topk=3), doc_len=16, **kw)
+            assert got.topk_vals is None and want.topk_vals is None
+            np.testing.assert_array_equal(got.topk_ids, want.topk_ids)
+            np.testing.assert_array_equal(got.df, np.asarray(want.df))
+            return
         with pytest.raises(NotImplementedError, match=item):
             run_overlapped(toy_corpus_dir, cfg, device="cpu", **kw)

@@ -51,7 +51,7 @@ from tfidf_tpu.ops.pallas_kernels import (fused_score_topk_pallas, tf_df_pallas,
                                           tokenize_hash_pallas)
 from tfidf_tpu.ops.sparse import sorted_term_counts as jax_sorted_term_counts
 from tfidf_tpu_torch.ops import kernels as K
-from tfidf_tpu_torch.ops.sparse import sparse_scores
+from tfidf_tpu_torch.ops.sparse import sorted_term_counts, sparse_scores
 
 # (v, nv) pairs csrc/tile_scores.cu instantiates.
 _B6_INSTANCES = {(4, 1), (4, 2), (2, 1), (2, 2), (2, 4),
@@ -238,6 +238,62 @@ def test_keyed_selection_matches_pallas(seed, d, length, k, dtype):
     pv, pt = K.fused_score_topk(t(ids), t(cnt), t(head), t(lens), t(idf), k=k)
     np.testing.assert_array_equal(pt.numpy(), jt)
     assert (tt.numpy()[3] == -1).all()  # the row with no head slot
+
+
+def _lane_columns_select(ids, counts, head, lengths, idf, k, hv):
+    """csrc/score_topk.cu's path for rows of more head slots than its
+    shared-memory list (rows read 16 slots a lane): lane ``lane`` reads
+    the head slots of
+    ``[l0 + lane * hv, l0 + (lane + 1) * hv)`` for l0 = 0, 32 hv, ...;
+    each lane keeps the top k composites it read; the merge pops the
+    largest of the 32 columns' heads k times. Returns the picked slots
+    (-1 past the candidates)."""
+    scores = sparse_scores(ids, counts, head, lengths, idf)
+    d, length = ids.shape
+    comp = K.topk_order_key(scores) * (1 << 32) + (0xFFFFFFFF - torch.arange(
+        length, dtype=torch.int64))
+    slots = np.full((d, k), -1, np.int64)
+    lane_of = (np.arange(length) // hv) % 32
+    for row in range(d):
+        cols = []
+        for lane in range(32):
+            mine = [int(c) for c in comp[row][torch.from_numpy(
+                (lane_of == lane) & head[row].numpy())]]
+            cols.append(sorted(mine, reverse=True)[:k])  # the lane's top k
+        for r in range(k):
+            heads = [c[0] for c in cols if c]
+            if not heads:
+                break
+            best = max(heads)
+            cols[[c[0] if c else -1 for c in cols].index(best)].pop(0)
+            slots[row, r] = 0xFFFFFFFF - (best & 0xFFFFFFFF)
+    return slots
+
+
+@pytest.mark.parametrize("k", [1, 16, 40, 64])
+def test_lane_columns_hold_the_top_k(k, hv=16):
+    """Rows of more than 2,048 distinct terms (uniform ids over a wide
+    vocab; counts mostly 1 and three idf values, so most scores tie):
+    the lanes' columns of k hold the row's top k, and the merge picks it
+    in (score desc, slot asc) order: the same picks as the keyed
+    selection and the plain version."""
+    rng = np.random.default_rng(k)
+    d, length, vocab = 6, 4096, 1 << 16
+    toks = torch.from_numpy(rng.integers(0, vocab, (d, length))
+                            .astype(np.int32))
+    lens = torch.full((d,), length, dtype=torch.int32)
+    lens[2] = 3000
+    ids, counts, head = sorted_term_counts(toks, lens)
+    idf = torch.from_numpy(rng.choice([0.5, 1.25, 2.0], vocab)
+                           .astype(np.float32))
+    slots = torch.from_numpy(_lane_columns_select(ids, counts, head, lens,
+                                                  idf, k, hv))
+    assert (head.sum(dim=1) > 2048).all() and (slots >= 0).all()
+    tv, tt = _keyed_select(ids, counts, head, lens, idf, k)
+    np.testing.assert_array_equal(torch.gather(ids, 1, slots).numpy(),
+                                  tt.numpy())
+    pv, pt = K.fused_score_topk(ids, counts, head, lens, idf, k=k)
+    assert torch.equal(pt, tt) and torch.equal(pv, tv)
 
 
 # --- B4: the rebuild's launch plan and indexing ---------------------------

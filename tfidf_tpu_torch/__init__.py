@@ -12,14 +12,20 @@ device="cpu")``, ``cli run|query --device cpu``); with no GPU and no
 device named they raise.
 """
 
-from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
-from tfidf_tpu_torch.io.corpus import (Corpus, PackedBatch, discover_corpus,
-                                       pack_corpus)
+from tfidf_tpu_torch.config import (PipelineConfig, ServeConfig,
+                                    TokenizerKind, VocabMode)
+from tfidf_tpu_torch.ingest import (ExactIngest, IngestResult, run_overlapped,
+                                    run_overlapped_exact)
+from tfidf_tpu_torch.io.corpus import (Corpus, PackedBatch, RaggedBatch,
+                                       discover_corpus, pack_corpus,
+                                       pack_ragged)
 from tfidf_tpu_torch.models import TfidfRetriever
 from tfidf_tpu_torch.pipeline import PipelineResult, TfidfPipeline
+from tfidf_tpu_torch.rerank import exact_terms, exact_terms_lines, exact_topk
 
 __all__ = [
     "PipelineConfig",
+    "ServeConfig",
     "VocabMode",
     "TokenizerKind",
     "TfidfPipeline",
@@ -27,6 +33,15 @@ __all__ = [
     "TfidfRetriever",
     "Corpus",
     "PackedBatch",
+    "RaggedBatch",
     "discover_corpus",
     "pack_corpus",
+    "pack_ragged",
+    "ExactIngest",
+    "IngestResult",
+    "run_overlapped",
+    "run_overlapped_exact",
+    "exact_terms",
+    "exact_terms_lines",
+    "exact_topk",
 ]

@@ -2,20 +2,31 @@
 ``query`` and ``serve`` subcommands.
 
     python -m tfidf_tpu_torch.cli run --input DIR [--output output.txt]
+        [--backend cuda|mpi [--nranks N] [--comm thread|process]]
         [--vocab-mode exact|hashed] [--vocab-size N] [--topk K]
+        [--tokenizer whitespace|chargram] [--ngram LO,HI]
         [--engine dense|sparse] [--result-wire packed|pair]
         [--score-dtype float32|bfloat16|float16] [--device cuda|cpu]
         [--doc-len L [--chunk-docs N] [--spill auto|host|reread]
          [--wire ragged|padded|bytes] [--finish scan|chunked]
-         [--pack-threads T]]
+         [--pack-threads T]] [--exact-terms [--exact-margin M]]
+        [--no-strict] [--inspect] [--timing] [--trace out.json]
 
 Without ``--topk`` it writes the reference's ``output.txt`` (byte-
 identical to the MPI reference on EXACT vocab); with ``--topk`` it
-writes the top-k report in the JAX CLI's format. A hashed top-k run
-with ``--doc-len`` goes through the overlapped chunked ingest
+writes the top-k report in the JAX CLI's format. A hashed whitespace
+top-k run with ``--doc-len`` goes through the overlapped chunked ingest
 (``ingest.run_overlapped``; documents longer than L tokens are
 truncated, terms print as ``id:N``), any other run through
-``TfidfPipeline``.
+``TfidfPipeline`` (a chargram hashed top-k run: the device chargram).
+``--exact-terms`` (hashed whitespace top-k) emits exact words: with
+``--doc-len`` through ``rerank.exact_terms_lines`` (the device-exact
+engine, else the hashed re-rank engine), else ``rerank.exact_topk`` over
+the batch run's margin selection. ``--backend mpi`` runs the native
+bit-reference (``native/tfidf_ref.cc``, built with g++ into
+``tfidf_tpu_torch/_build/`` at first use) instead. ``--mesh`` and
+``--ingest-workers`` raise naming ROADMAP A9. The gating messages and
+exit codes are the JAX CLI's.
 
     python -m tfidf_tpu_torch.cli stream --input DIR [--output output.txt]
         [--batch-docs N] [--doc-len L] [--vocab-size V] [--topk K]
@@ -102,10 +113,23 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--input", required=True, help="document directory")
     run.add_argument("--output", default="output.txt",
                      help="output file (reference format)")
+    run.add_argument("--backend", choices=["cuda", "mpi"], default="cuda",
+                     help="'cuda': the port (on --device); 'mpi': the "
+                          "native bit-reference, the oracle")
+    run.add_argument("--nranks", type=int, default=4,
+                     help="ranks for --backend=mpi")
+    run.add_argument("--comm", choices=["thread", "process"],
+                     default="thread",
+                     help="--backend=mpi rank backend: threads in one "
+                          "process, or fork+socketpair OS processes")
     run.add_argument("--vocab-mode", choices=["exact", "hashed"],
                      default="exact")
     run.add_argument("--vocab-size", type=int, default=1 << 16,
                      help="hashed vocabulary size")
+    run.add_argument("--tokenizer", choices=["whitespace", "chargram"],
+                     default="whitespace")
+    run.add_argument("--ngram", type=str, default="3,5",
+                     help="chargram n range, e.g. 3,5")
     run.add_argument("--topk", type=int, default=None,
                      help="emit only the top-k terms per document")
     run.add_argument("--engine", choices=["dense", "sparse"], default=None,
@@ -147,6 +171,32 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--pack-threads", type=int, default=None,
                      help="host packer threads of the native loader "
                           "(default every core; env TFIDF_TPU_PACK_THREADS)")
+    run.add_argument("--exact-terms", action="store_true",
+                     help="hashed whitespace top-k: emit exact words with "
+                          "exact scores instead of bucket ids (the "
+                          "device-exact engine when the corpus fits the "
+                          "vocab, else the hashed re-rank engine)")
+    run.add_argument("--exact-margin", type=int, default=4,
+                     help="candidate margin multiplier of --exact-terms' "
+                          "hashed engine: the device keeps margin*k "
+                          "buckets (the device-exact engine uses k+8)")
+    run.add_argument("--mesh", type=str, default=None,
+                     help="mesh shape docs,seq,vocab (not ported yet: "
+                          "ROADMAP A9)")
+    run.add_argument("--ingest-workers", type=int, default=None,
+                     help="multi-process sharded ingest (not ported yet: "
+                          "ROADMAP A9)")
+    run.add_argument("--no-strict", action="store_true",
+                     help="accept any filenames, not just doc<i>")
+    run.add_argument("--inspect", action="store_true",
+                     help="print the reference's TF Job / IDF Job tables "
+                          "to stdout before running (toy corpora)")
+    run.add_argument("--timing", action="store_true",
+                     help="print per-phase wall-clock and docs/sec to "
+                          "stderr")
+    run.add_argument("--trace", default=None,
+                    help="record spans and write them as Chrome trace "
+                         "JSON to this path (or TFIDF_TPU_TRACE)")
     st = sub.add_parser(
         "stream",
         help="stream the corpus in minibatches with checkpoint/resume")
@@ -967,21 +1017,18 @@ def _run_stream(args) -> int:
     with phase("emit"):
         _write_topk(args.output, report)  # same format as `run --topk`
     if timer is not None:
-        acc = timer.as_dict()
-        total = sum(acc.values()) or 1.0
-        rows = [f"{n:>12}: {s * 1e3:9.1f} ms ({100 * s / total:4.1f}%)"
-                for n, s in acc.items()]
-        sys.stderr.write("\n".join(rows) + f"\n{'docs/sec':>12}: "
+        total = sum(timer.as_dict().values()) or 1.0
+        sys.stderr.write(timer.report() + f"\n{'docs/sec':>12}: "
                          f"{len(all_names) / total:9.1f}\n")
     print(f"wrote {args.output} ({stream.docs_seen} docs)")
     return 0
 
 
-def _overlapped(args, cfg) -> Optional[bool]:
+def _overlapped(args, cfg, exact_terms: bool) -> Optional[bool]:
     """The JAX CLI's gating of ``--doc-len`` runs: True to take the
     overlapped ingest, False for the batch pipeline, None after an error
     message (exit 2). Prints the same warnings as the JAX CLI."""
-    from tfidf_tpu_torch.config import VocabMode
+    from tfidf_tpu_torch.config import TokenizerKind, VocabMode
     from tfidf_tpu_torch.ingest import use_bytes_wire
     from tfidf_tpu_torch.ops.downlink import use_packed_result_wire
 
@@ -998,16 +1045,18 @@ def _overlapped(args, cfg) -> Optional[bool]:
         return None
     overlapped = (args.doc_len is not None
                   and cfg.vocab_mode is VocabMode.HASHED
-                  and cfg.topk is not None and cfg.engine == "sparse")
+                  and cfg.topk is not None
+                  and cfg.tokenizer is TokenizerKind.WHITESPACE
+                  and cfg.engine == "sparse")
     if args.finish == "scan" and overlapped \
-            and not use_packed_result_wire(cfg):
+            and (not use_packed_result_wire(cfg) or exact_terms):
         sys.stderr.write(
             "warning: --finish=scan needs the packed result wire; "
             "falling back to the chunked/fused finish (the pair "
             "and exact wires' fused finish program is already one "
             "dispatch)\n")
     if args.wire == "bytes" and (
-            not overlapped
+            not overlapped or exact_terms
             or not use_bytes_wire(cfg, args.chunk_docs or 8192,
                                   args.doc_len or cfg.max_doc_len)):
         sys.stderr.write(
@@ -1024,38 +1073,151 @@ def _overlapped(args, cfg) -> Optional[bool]:
     return overlapped
 
 
+def _run_mpi(args) -> int:
+    """The native bit-reference (the ``--backend=mpi`` oracle), built
+    with g++ into ``tfidf_tpu_torch/_build/`` at first use."""
+    import subprocess
+
+    from tfidf_tpu_torch.ops import _build
+    try:
+        exe = _build.load_oracle()
+    except (OSError, RuntimeError) as e:
+        sys.stderr.write(f"error: native backend not built ({e})\n")
+        return 1
+    return subprocess.run([str(exe), args.input, args.output,
+                           str(args.nranks), args.comm]).returncode
+
+
+def _timing_report(timer, docs: int, seconds: float,
+                   engine: Optional[str] = None) -> None:
+    sys.stderr.write(timer.report() + "\n"
+                     f"{'docs/sec':>12}: "
+                     f"{docs / seconds if seconds else 0.0:9.1f}\n")
+    if engine is not None:
+        sys.stderr.write(f"{'engine':>12}: {engine}\n")
+
+
 def _run(args) -> int:
+    import contextlib
+    import time
     import types
 
-    from tfidf_tpu_torch.config import PipelineConfig, VocabMode
+    from tfidf_tpu_torch import obs
+    from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
     from tfidf_tpu_torch.formatter import write_output
-    from tfidf_tpu_torch.io.corpus import discover_corpus
+    from tfidf_tpu_torch.io.corpus import discover_corpus, discover_names
     from tfidf_tpu_torch.pipeline import TfidfPipeline
+    from tfidf_tpu_torch.utils.timing import PhaseTimer
 
-    cfg = PipelineConfig(vocab_mode=VocabMode(args.vocab_mode),
-                         vocab_size=args.vocab_size, topk=args.topk,
-                         engine=args.engine, result_wire=args.result_wire,
-                         score_dtype=args.score_dtype, wire=args.wire,
-                         pack_threads=args.pack_threads,
-                         finish=args.finish or "scan")
-    overlapped = _overlapped(args, cfg)
+    if args.mesh:
+        raise NotImplementedError(
+            "run --mesh (the JAX package's mesh pipeline and mesh ingest) "
+            "is not ported yet: ROADMAP A9")
+    workers = args.ingest_workers
+    if workers is None:
+        workers = int(os.environ.get("TFIDF_TPU_INGEST_WORKERS", "1") or 1)
+    if workers < 1:
+        sys.stderr.write("error: --ingest-workers must be >= 1\n")
+        return 2
+    if workers > 1:
+        raise NotImplementedError(
+            "run --ingest-workers (multi-process sharded ingest) is not "
+            "ported yet: ROADMAP A9")
+    lo, hi = (int(x) for x in args.ngram.split(","))
+    exact_terms = args.exact_terms
+    if exact_terms and (args.topk is None or args.vocab_mode != "hashed"
+                        or args.tokenizer != "whitespace"):
+        sys.stderr.write("error: --exact-terms needs --topk, "
+                         "--vocab-mode hashed, and the whitespace "
+                         "tokenizer\n")
+        return 2
+    cfg = PipelineConfig(
+        vocab_mode=VocabMode(args.vocab_mode), vocab_size=args.vocab_size,
+        tokenizer=TokenizerKind(args.tokenizer), ngram_range=(lo, hi),
+        # the hashed exact-terms engine keeps a margin of candidates
+        topk=(max(2, args.exact_margin) * args.topk if exact_terms
+              else args.topk),
+        engine=args.engine, result_wire=args.result_wire,
+        score_dtype=args.score_dtype, wire=args.wire,
+        pack_threads=args.pack_threads, finish=args.finish or "scan")
+    strict = not args.no_strict
+    timer = PhaseTimer() if args.timing else None
+
+    @contextlib.contextmanager
+    def phase(name):
+        with obs.span(name), (timer.phase(name) if timer is not None
+                              else contextlib.nullcontext()):
+            yield
+
+    corpus = None
+    if args.inspect:
+        from tfidf_tpu_torch.golden import inspect_tables
+        corpus = discover_corpus(args.input, strict=strict)
+        if len(corpus) > 200:
+            sys.stderr.write(f"warning: --inspect prints every record "
+                             f"({len(corpus)} docs) — meant for toy "
+                             f"corpora\n")
+        sys.stdout.buffer.write(inspect_tables(corpus))
+        sys.stdout.buffer.flush()
+    overlapped = _overlapped(args, cfg, exact_terms)
     if overlapped is None:
         return 2
+    if overlapped and exact_terms:
+        from tfidf_tpu_torch.rerank import exact_terms_lines
+        n_docs = (len(corpus) if corpus is not None
+                  else len(discover_names(args.input, strict)))
+        t0 = time.perf_counter()
+        lines, engine, _ = exact_terms_lines(
+            args.input, cfg, k=args.topk, doc_len=args.doc_len,
+            chunk_docs=args.chunk_docs or 8192, strict=strict,
+            spill=args.spill or "auto", device=args.device)
+        seconds = time.perf_counter() - t0
+        with phase("emit"):
+            # already in the reference's strcmp order
+            with open(args.output, "wb") as f:
+                f.write(lines)
+        if timer is not None:
+            _timing_report(timer, n_docs, seconds, engine)
+        print(f"wrote {args.output} ({n_docs} docs)")
+        return 0
+    t0 = time.perf_counter()
     if overlapped:
         from tfidf_tpu_torch.ingest import run_overlapped
-        r = run_overlapped(args.input, cfg, doc_len=args.doc_len,
-                           chunk_docs=args.chunk_docs or 8192,
-                           spill=args.spill or "auto", device=args.device)
+        with obs.span("run_overlapped"):
+            r = run_overlapped(args.input, cfg, doc_len=args.doc_len,
+                               chunk_docs=args.chunk_docs or 8192,
+                               strict=strict, spill=args.spill or "auto",
+                               device=args.device)
         result = types.SimpleNamespace(
             num_docs=r.num_docs, names=r.names, topk_vals=r.topk_vals,
             topk_ids=r.topk_ids, id_to_word={})
+        if timer is not None:
+            for name, secs in (r.phases or {}).items():
+                timer.add(name, secs)
     else:
-        pipe = TfidfPipeline(cfg, device=args.device)
-        result = pipe.run(discover_corpus(args.input))
-    if args.topk is None:
-        write_output(args.output, result.output_lines())
-    else:
-        _write_topk(args.output, result)
+        if corpus is None:
+            with phase("discover"):
+                corpus = discover_corpus(args.input, strict=strict)
+        pipe = TfidfPipeline(cfg, timer=timer, device=args.device)
+        result = pipe.run(corpus)
+    seconds = time.perf_counter() - t0
+    with phase("emit"):
+        if args.topk is None:
+            write_output(args.output, result.output_lines())
+        elif exact_terms:
+            from tfidf_tpu_torch.rerank import exact_topk
+            reranked = exact_topk(args.input, result.names, result.topk_ids,
+                                  result.num_docs, cfg, k=args.topk,
+                                  df=result.df)
+            lines = sorted(b"%s@%s\t%.16f" % (name.encode(), w, s)
+                           for name in result.names if name
+                           for w, s in reranked[name])
+            with open(args.output, "wb") as f:
+                f.write(b"".join(line + b"\n" for line in lines))
+        else:
+            _write_topk(args.output, result)
+    if timer is not None:
+        _timing_report(timer, result.num_docs, seconds)
     print(f"wrote {args.output} ({result.num_docs} docs)")
     return 0
 
@@ -1064,8 +1226,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
     if args.cmd == "query":
         return _run_query(args)
-    if args.cmd == "run":
-        return _run(args)
+    if args.cmd == "run" and args.backend == "mpi":
+        return _run_mpi(args)
     # Arm the span tracer (--trace / TFIDF_TPU_TRACE; a no-op when neither
     # is set) and, for serve, the flight recorder (--flight /
     # TFIDF_TPU_FLIGHT, or next to the trace); export both on any exit.
@@ -1076,6 +1238,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         if args.cmd == "serve":
             return _run_serve(args)
+        if args.cmd == "run":
+            return _run(args)
         return _run_stream(args)
     finally:
         path = obs.export()

@@ -39,10 +39,21 @@
 //       heads with __reduce_max_sync on the key and __reduce_min_sync on
 //       the position among the lanes that hold it; the winner pops, and
 //       lane r % 32 keeps pick r, so picks are written 32 at a time.
-//     - n > cap (cap = 2,048, 40 KB a warp): every round rescans the
-//       row's head slots from global memory (L2) for the largest
-//       composite below the last pick. Only rows of more than 2,048
-//       distinct terms take it.
+//     - n > cap, rows read 16 slots a lane (L >= 512, L % 16 == 0,
+//       16-byte aligned; there cap = max(32 k, 512), 10 KB a warp at
+//       k 16, so an SM holds four times the warps of a 2,048 list) and
+//       k <= 64: one more pass over the row, each lane loading its
+//       16 slots' ids and counts in 16-byte loads, gathering every head
+//       slot's idf at once and keeping the top k of what it read in a
+//       sorted column of the composite buffer (a candidate below the
+//       column's k-th is dropped after one compare); then the rounds of
+//       warp max and pop above over those columns, a pick's score and
+//       id recomputed from its slot. The global top k lies in the union
+//       of the lanes'. Otherwise every round rescans the row's head
+//       slots from global memory (L2) for the largest composite below
+//       the last pick (cap = 2,048, 40 KB a warp). The narrower reads
+//       keep the short-row kernels' registers (and occupancy) as they
+//       were.
 //   Picks past the row's head count, and picks not above finfo.min, are
 //   (0, -1).
 //   What is left: chip_smoke.py times B1 with no head slot at all (one
@@ -63,6 +74,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // the card.
 constexpr int kMaxWarps = 2;
 constexpr int kCapMax = 2048;
+// The list of rows that have the column path (below): 10 KB a warp.
+constexpr int kColumnCap = 512;
 constexpr size_t kEntry = sizeof(unsigned long long) + sizeof(float) +
                           2 * sizeof(int);  // composite, score, id, slot
 constexpr size_t kSmemBudget = 48 * 1024;
@@ -286,7 +299,74 @@ __global__ void fused_score_topk_kernel(
     return;
   }
 
-  // --- n > cap: rescore the row's head slots every round ------------
+  if constexpr (HV == 16) {
+    if (k * 32 <= cap) {
+      // --- n > cap: each lane's top k in its column, then pop --------
+      // A lane's 16 slots: ids and counts in four 16-byte loads each,
+      // every head slot's idf gathered at once, then the column insert.
+      int cnt = 0;
+      for (int l0 = 0; l0 < L; l0 += 32 * HV) {
+        const int l = l0 + lane * HV;
+        const unsigned mask = l < L ? head_bits<HV>(head + base + l) : 0u;
+        if (!mask) continue;
+        int id[HV], ct[HV];
+        const int4* ip = reinterpret_cast<const int4*>(ids + base + l);
+        const int4* cp = reinterpret_cast<const int4*>(counts + base + l);
+#pragma unroll
+        for (int q = 0; q < HV / 4; ++q) {
+          const int4 a = __ldg(ip + q), c = __ldg(cp + q);
+          id[4 * q] = a.x; id[4 * q + 1] = a.y;
+          id[4 * q + 2] = a.z; id[4 * q + 3] = a.w;
+          ct[4 * q] = c.x; ct[4 * q + 1] = c.y;
+          ct[4 * q + 2] = c.z; ct[4 * q + 3] = c.w;
+        }
+        float sv[HV];
+#pragma unroll
+        for (int j = 0; j < HV; ++j)
+          sv[j] = (mask >> j & 1u) ? head_score<T>(id[j], ct[j], len, idf, V)
+                                   : 0.f;
+#pragma unroll
+        for (int j = 0; j < HV; ++j) {
+          if (!(mask >> j & 1u)) continue;
+          const unsigned long long c = composite(sv[j], l + j);
+          if (cnt == k && c <= comp[lane + 32 * (k - 1)]) continue;
+          int at = cnt < k ? cnt++ : k - 1;
+          for (; at > 0 && comp[lane + 32 * (at - 1)] < c; --at)
+            comp[lane + 32 * at] = comp[lane + 32 * (at - 1)];
+          comp[lane + 32 * at] = c;
+        }
+      }
+      int top = 0;
+      unsigned long long c = cnt > 0 ? comp[lane] : 0ull;
+      int pslot = 0;
+      int r = 0;
+      for (; r < k; ++r) {
+        const unsigned key = (unsigned)(c >> 32);
+        const unsigned best_key = __reduce_max_sync(kFull, key);
+        if (best_key == 0u) break;  // every candidate picked
+        const unsigned lo = (unsigned)c;  // ~slot: larger = lower slot
+        const unsigned best_lo =
+            __reduce_max_sync(kFull, key == best_key ? lo : 0u);
+        if (lane == (r & 31)) pslot = (int)(0xffffffffu - best_lo);
+        if (key == best_key && lo == best_lo)
+          c = ++top < cnt ? comp[lane + 32 * top] : 0ull;
+        if ((r & 31) == 31) {
+          const int pid = ids[base + pslot];
+          write_pick(head_score<T>(pid, counts[base + pslot], len, idf, V),
+                     pid, neg, vrow, trow, r - 31 + lane);
+        }
+      }
+      if (lane < (r & 31)) {
+        const int pid = ids[base + pslot];
+        write_pick(head_score<T>(pid, counts[base + pslot], len, idf, V),
+                   pid, neg, vrow, trow, (r & ~31) + lane);
+      }
+      for (int j = r + lane; j < k; j += 32) write_none(vrow, trow, j);
+      return;
+    }
+  }
+
+  // --- n > cap otherwise: rescore the row's head slots every round ---
   unsigned long long prev = 0ull;
   for (int r = 0; r < k; ++r) {
     unsigned long long best = 0ull;
@@ -323,7 +403,10 @@ template <typename T, int HV>
 int launch(const void* ids, const void* counts, const void* head,
            const void* lengths, const void* idf, void* vals, void* tids,
            int D, int L, int k, int V, cudaStream_t stream) {
-  const int cap = min((L + 31) / 32 * 32, kCapMax);
+  int cap = min((L + 31) / 32 * 32, kCapMax);
+  // Rows read 16 slots a lane have the column path past cap: a smaller
+  // list (but room for 32 columns of k) gives more warps an SM.
+  if (HV == 16 && 32 * k <= kCapMax) cap = min(cap, max(32 * k, kColumnCap));
   const int warps =
       max(1, min(kMaxWarps, (int)(kSmemBudget / ((size_t)cap * kEntry))));
   const size_t smem = (size_t)warps * cap * kEntry;
@@ -340,9 +423,12 @@ template <typename T>
 int launch_hv(const void* ids, const void* counts, const void* head,
               const void* lengths, const void* idf, void* vals, void* tids,
               int D, int L, int k, int V, cudaStream_t s) {
-  // head rows start at row * L bytes: vector width by L and alignment.
+  // head rows start at row * L bytes: vector width by L and alignment
+  // (16 also loads ids and counts 16 bytes at a time).
   const uintptr_t a = reinterpret_cast<uintptr_t>(head);
-  if (L >= 512 && L % 16 == 0 && a % 16 == 0)
+  const uintptr_t w = reinterpret_cast<uintptr_t>(ids) |
+                      reinterpret_cast<uintptr_t>(counts);
+  if (L >= 512 && L % 16 == 0 && a % 16 == 0 && w % 16 == 0)
     return launch<T, 16>(ids, counts, head, lengths, idf, vals, tids, D, L,
                          k, V, s);
   if (L % 8 == 0 && a % 8 == 0)

@@ -32,6 +32,17 @@ accumulator. Two regimes, chosen by corpus size against
   prefix, then re-derives the rest from chunks kept in host RAM
   (``spill="host"``) or re-read from disk (``spill="reread"``).
 
+``wire_vals=False`` (the hashed exact-terms engine's fetch) ships only
+the selected ids off the resident run: invalid slots read bucket 0 and
+``topk_vals`` is None; the streaming regime ignores it and returns full
+scores, as the JAX package's does. :func:`run_overlapped_exact` is the
+device-exact engine: the native intern table gives every distinct word
+a collision-free id as the chunks pack (ragged wire, B4 every chunk),
+and the exact-ids wire ships each pick's (id, count) plus the [V] DF, so
+the host rescores in float64 without re-reading the corpus
+(``rerank.exact_topk_from_wire``). :func:`profile_resident` times the
+resident run's phases one at a time, each fenced.
+
 Differences from the JAX package: there is no jit, donation or
 ``lax.scan`` (PyTorch runs eagerly: the scan finish is a loop), the DF
 accumulator is updated in place, the DF join is always the gather join
@@ -47,6 +58,7 @@ ported: a worker's exception surfaces at ``get()``/``results()``.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import dataclasses
 import functools
 import os
@@ -67,7 +79,7 @@ from tfidf_tpu_torch.ops.downlink import (pair_slot_bytes,
 from tfidf_tpu_torch.ops.kernels import pack_words, ragged_rebuild
 from tfidf_tpu_torch.ops.scoring import canonical_score_dtype, idf_from_df
 from tfidf_tpu_torch.ops.sparse import (score_topk, sorted_term_counts,
-                                        sparse_df)
+                                        sparse_df, sparse_topk_counts)
 from tfidf_tpu_torch.pipeline import resolve_device
 
 # spill="auto": keep packed chunks in host RAM up to this many bytes
@@ -581,37 +593,80 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8).reshape(-1)
 
 
+def _u16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """Non-negative int32 values < 2^16 as little-endian uint16 bytes."""
+    return torch.stack([t & 0xFF, (t >> 8) & 0xFF],
+                       -1).to(torch.uint8).reshape(-1)
+
+
 def _score_pack_wire(ids_parts, cnt_parts, head_parts, lens_parts, df,
                      num_docs: int, *, topk: int, score_dtype,
-                     wide_ids: bool):
-    """The pair result wire's finish: score the concatenated triples
-    against the IDF of ``df`` (the gather join) and pack the selection
-    into ONE byte buffer: scores in the score dtype (-1 marks a missing
-    pick), ids as uint16 (int32 for vocabs past 2^16), and the
-    occupied-DF-bucket count as a 4-byte tail. Returns ``(df, wire)``."""
+                     wide_ids: bool, include_vals: bool = True,
+                     include_counts: bool = False):
+    """The fused finish of the pair, ids-only and exact-ids result
+    wires: score the concatenated triples against the IDF of ``df`` (the
+    gather join) and pack the selection into ONE byte buffer. Returns
+    ``(df, wire)``. Ids travel as uint16 (int32 for vocabs past 2^16).
+
+    * pair: scores in the score dtype (-1 marks a missing pick), ids,
+      and the occupied-DF-bucket count as a 4-byte tail;
+    * ids-only (``include_vals=False``): ids (a missing pick reads
+      bucket 0, harmless to the re-rank, which scores candidates exactly
+      and drops words not in the doc), then the 4-byte tail;
+    * exact-ids (``include_counts=True``, collision-free intern ids):
+      ids, uint16 counts (0 marks a missing pick), then the full [V] DF
+      as int32, everything the host needs to rescore in float64."""
     idf = idf_from_df(df, num_docs, score_dtype)
-    vals, tids = score_topk(torch.cat(ids_parts), torch.cat(cnt_parts),
-                            torch.cat(head_parts), torch.cat(lens_parts),
-                            idf, topk)
-    ok = tids >= 0
-    vals_wire = torch.where(ok, vals, -1)
-    if wide_ids:
-        tid_wire = _as_bytes(tids)
-    else:  # little-endian uint16 bytes
+    cat = (torch.cat(ids_parts), torch.cat(cnt_parts), torch.cat(head_parts),
+           torch.cat(lens_parts))
+
+    def id_bytes(tids):
         safe = tids.clamp_min(0)
-        tid_wire = torch.stack([safe & 0xFF, (safe >> 8) & 0xFF],
-                               -1).to(torch.uint8).reshape(-1)
-    occ = (df > 0).sum(dtype=torch.int32).reshape(1)
-    return df, torch.cat([_as_bytes(vals_wire), tid_wire, _as_bytes(occ)])
+        return _as_bytes(safe) if wide_ids else _u16_bytes(safe)
+
+    if include_counts:
+        if cat[0].shape[1] > (1 << 16) - 1:
+            raise ValueError("exact-ids wire carries uint16 counts: "
+                             "doc_len must be < 65536")
+        _, tids, tcnt = sparse_topk_counts(*cat, idf, topk)
+        return df, torch.cat([id_bytes(tids), _u16_bytes(tcnt),
+                              _as_bytes(df.to(torch.int32))])
+    vals, tids = score_topk(*cat, idf, topk)
+    occ = _as_bytes((df > 0).sum(dtype=torch.int32).reshape(1))
+    if not include_vals:
+        return df, torch.cat([id_bytes(tids), occ])
+    vals_wire = torch.where(tids >= 0, vals, -1)
+    tid_wire = _as_bytes(tids) if wide_ids else id_bytes(tids)
+    return df, torch.cat([_as_bytes(vals_wire), tid_wire, occ])
+
+
+def _decode_wire_exact(buf: np.ndarray, d_padded: int, k: int,
+                       wide_ids: bool):
+    """Host decode of the exact-ids wire -> ``(tids, counts, df)``: int32
+    [D, K] ids and counts (count 0 = no pick; its id is don't-care) and
+    the [V] DF from the tail."""
+    id_bytes = d_padded * k * (4 if wide_ids else 2)
+    cnt_bytes = d_padded * k * 2
+    tids = buf[:id_bytes].view("<i4" if wide_ids else "<u2") \
+        .reshape(d_padded, k).astype(np.int32)
+    cnt = buf[id_bytes:id_bytes + cnt_bytes].view("<u2") \
+        .reshape(d_padded, k).astype(np.int32)
+    return tids, cnt, buf[id_bytes + cnt_bytes:].view("<i4")
 
 
 def _decode_wire(buf: np.ndarray, d_padded: int, k: int, wide_ids: bool,
-                 score_dtype):
-    """Host decode of :func:`_score_pack_wire`'s buffer -> ``(vals, tids,
-    occupied)``; missing picks decode to (0, -1). bfloat16 scores widen
-    to float32 (numpy has no bfloat16)."""
+                 score_dtype, include_vals: bool = True):
+    """Host decode of :func:`_score_pack_wire`'s pair or ids-only buffer
+    -> ``(vals, tids, occupied)``; on the pair wire missing picks decode
+    to (0, -1) and bfloat16 scores widen to float32 (numpy has no
+    bfloat16); the ids-only wire gives vals None and bucket 0 for a
+    missing pick."""
     occupied = int(buf[-4:].view("<i4")[0])
     buf = buf[:-4]
+    id_t = "<i4" if wide_ids else "<u2"
+    if not include_vals:
+        return None, buf.view(id_t).reshape(d_padded, k).astype(np.int32), \
+            occupied
     sdt = canonical_score_dtype(score_dtype)
     s_bytes = d_padded * k * sdt.itemsize
     raw = buf[:s_bytes]
@@ -621,8 +676,7 @@ def _decode_wire(buf: np.ndarray, d_padded: int, k: int, wide_ids: bool,
     else:
         vals = raw.view("<f4" if sdt == torch.float32 else "<f2")
     vals = vals.reshape(d_padded, k).copy()
-    tids = buf[s_bytes:].view("<i4" if wide_ids else "<u2") \
-        .reshape(d_padded, k).astype(np.int32)
+    tids = buf[s_bytes:].view(id_t).reshape(d_padded, k).astype(np.int32)
     bad = vals < 0
     vals[bad] = 0
     tids[bad] = -1
@@ -772,7 +826,8 @@ class IngestResult:
     values are the same, only the type differs (torch has no lazy device
     array). ``topk_vals`` are in the score dtype on the pair wire
     (bfloat16 widened to float32) and rounded to the 16-bit wire format
-    on the packed wire.
+    on the packed wire; None after a resident ``wire_vals=False`` run,
+    whose ``topk_ids`` read bucket 0 for a missing pick.
     """
 
     df: np.ndarray            # [V] corpus DF
@@ -815,6 +870,7 @@ class _Run:
     spill: str
     device: torch.device
     pack_chunk: Callable
+    wire_vals: bool = True
 
     @property
     def num_docs(self) -> int:
@@ -848,14 +904,19 @@ def run_overlapped(input_dir: str, config: Optional[PipelineConfig] = None,
     ``"auto"`` (RAM up to ``TFIDF_TPU_SPILL_BYTES``). Requires a HASHED
     vocab and a top-k selection.
 
+    ``wire_vals=False`` drops scores from the resident run's result
+    wire (the hashed exact-terms engine reads only candidate buckets):
+    ``topk_vals`` is None and a missing pick reads bucket 0 in
+    ``topk_ids``. The streaming regime treats it as advisory and returns
+    full scores with -1 for a missing pick, as the JAX package does.
+
     ``device``: CUDA unless the caller names another device; raises
     "no CUDA device available" without a GPU and no device named.
     ``device="cpu"`` runs every kernel's plain version.
 
     Not ported yet (raise NotImplementedError): ``plan`` (mesh ingest)
     and the multi-process hooks ``shard``/``df_merge``/``total_docs``
-    (ROADMAP A9); ``wire_vals=False``, the exact-terms fetch (ROADMAP
-    A5).
+    (ROADMAP A9).
     """
     cfg = config or PipelineConfig(vocab_mode=VocabMode.HASHED, topk=16)
     if cfg.vocab_mode is not VocabMode.HASHED:
@@ -870,10 +931,6 @@ def run_overlapped(input_dir: str, config: Optional[PipelineConfig] = None,
         raise NotImplementedError(
             "run_overlapped's multi-process hooks (shard, df_merge, "
             "total_docs) are not ported yet: ROADMAP A9")
-    if not wire_vals:
-        raise NotImplementedError(
-            "run_overlapped(wire_vals=False) (the exact-terms ingest) is "
-            "not ported yet: ROADMAP A5")
     if spill not in ("auto", "host", "reread"):
         raise ValueError(f"unknown spill policy {spill!r}")
     dev = resolve_device(device)
@@ -899,7 +956,8 @@ def run_overlapped(input_dir: str, config: Optional[PipelineConfig] = None,
                score_dtype=canonical_score_dtype(cfg.score_dtype),
                itemsize=itemsize, spill=spill, device=dev,
                pack_chunk=make_chunk_packer(input_dir, cfg, chunk_docs,
-                                            length))
+                                            length),
+               wire_vals=wire_vals)
     resident = int(os.environ.get("TFIDF_TPU_RESIDENT_ELEMS",
                                   _RESIDENT_ELEMS))
     if num_docs * length <= resident:
@@ -979,7 +1037,7 @@ def _run_resident(run: _Run) -> IngestResult:
                   * pair_slot_bytes(run.score_dtype))
     trip_i, trip_c, trip_h, len_parts = (list(p) for p in zip(*trips))
 
-    if use_packed_result_wire(cfg):
+    if run.wire_vals and use_packed_result_wire(cfg):
         scan_finish = use_scan_finish(cfg, True)
         t0 = time.perf_counter()
         idf = _final_idf(df_acc, num_docs, score_dtype=run.score_dtype)
@@ -1024,14 +1082,18 @@ def _run_resident(run: _Run) -> IngestResult:
     df_dev, wire = _score_pack_wire(trip_i, trip_c, trip_h, len_parts, df_acc,
                                     num_docs, topk=k,
                                     score_dtype=run.score_dtype,
-                                    wide_ids=wide)
+                                    wide_ids=wide,
+                                    include_vals=run.wire_vals)
     _trace("fetch_start")
     buf = wire.cpu().numpy()
     df_host = df_dev.cpu().numpy()
     _trace("fetch_done")
     ph["fetch"] = time.perf_counter() - t0
-    vals, tids, occ = _decode_wire(buf, d_padded, k, wide, run.score_dtype)
-    return IngestResult(df=df_host, topk_vals=vals[:num_docs],
+    vals, tids, occ = _decode_wire(buf, d_padded, k, wide, run.score_dtype,
+                                   include_vals=run.wire_vals)
+    return IngestResult(df=df_host,
+                        topk_vals=vals[:num_docs] if vals is not None
+                        else None,
                         topk_ids=tids[:num_docs], df_occupied=occ,
                         phases=ph, result_wire="pair",
                         bytes_off_wire=buf.nbytes, finish="fused",
@@ -1262,3 +1324,238 @@ def _run_streaming(run: _Run) -> IngestResult:
                         # "scan" only when the scanned prefix ran
                         finish="scan" if n_scanned else "chunked",
                         n_finish_dispatches=n_dispatches)
+
+
+@dataclasses.dataclass
+class ExactIngest:
+    """Device-exact ingest outputs on collision-free intern word ids.
+
+    Every field is integer-exact: (count, df) per pick is all the host
+    needs to reproduce the reference's float64 score
+    (``rerank.exact_topk_from_wire``). A missing pick has count 0.
+    """
+
+    names: List[str]
+    lengths: np.ndarray       # [D] truncated docSize
+    topk_ids: np.ndarray      # [D, K'] exact word ids
+    topk_counts: np.ndarray   # [D, K'] in-document term counts
+    df: np.ndarray            # [V] exact corpus DF (from the wire tail)
+    num_docs: int
+    words: List[bytes]        # id -> word bytes (the intern dictionary)
+    phases: Optional[Dict[str, float]] = None
+
+
+def run_overlapped_exact(input_dir: str,
+                         config: Optional[PipelineConfig] = None,
+                         chunk_docs: int = 8192,
+                         doc_len: Optional[int] = None,
+                         strict: bool = True, session=None,
+                         device=None) -> ExactIngest:
+    """The exact-terms fast path: the overlapped resident ingest on
+    exact word ids (``tfidf_tpu/ingest.py:2523``).
+
+    The native intern table (``io.fast_tokenizer.InternSession``) gives
+    every distinct token a dense corpus-global id in first-appearance
+    order as the packer thread packs each chunk's ragged wire, so there
+    are no hash collisions: each chunk is rebuilt on the device (B4),
+    sorted and folded into DF, and one finish scores every chunk and
+    ships each pick's (id, count) plus the [V] DF (the exact-ids wire;
+    the selection is B1's). Chunks pack in order on the one packer
+    thread, as the ids require.
+
+    ``session``: an open :class:`InternSession` to use and leave open
+    (the native exact-terms finish reads it afterwards); by default the
+    run opens its own. ``device``: CUDA unless the caller names another.
+
+    Raises ``ExactVocabOverflow`` when the corpus holds more distinct
+    words than ``cfg.vocab_size``, RuntimeError without the native
+    library, and ValueError past the resident budget: the caller's cue
+    to take the hashed re-rank engine (``rerank.exact_terms``).
+    """
+    cfg = config or PipelineConfig(vocab_mode=VocabMode.HASHED, topk=16)
+    if cfg.topk is None:
+        raise ValueError("exact ingest requires a topk selection")
+    if cfg.tokenizer is not TokenizerKind.WHITESPACE:
+        raise ValueError("exact ingest serves the whitespace tokenizer")
+    if cfg.vocab_size > (1 << 22):
+        raise ValueError("exact ingest caps the vocab at 2^22 ids")
+    dev = resolve_device(device)
+    if not fast_tokenizer.intern_available():
+        raise RuntimeError("native intern table unavailable: "
+                           + (fast_tokenizer.load_error()
+                              or "TFIDF_TPU_NO_NATIVE is set"))
+    length = doc_len or cfg.max_doc_len
+    names = discover_names(input_dir, strict)
+    num_docs = len(names)
+    if num_docs == 0:
+        raise ValueError(f"no documents in {input_dir}")
+    resident = int(os.environ.get("TFIDF_TPU_RESIDENT_ELEMS",
+                                  _RESIDENT_ELEMS))
+    if num_docs * length > resident:
+        raise ValueError("exact ingest is resident-only; corpus exceeds "
+                         "TFIDF_TPU_RESIDENT_ELEMS")
+    score_dtype = canonical_score_dtype(cfg.score_dtype)
+    k = min(cfg.topk, length)
+    chunk_docs, starts = _resident_chunking(num_docs, chunk_docs)
+    _check_chunk_fits_int32(chunk_docs, length)
+    _check_total_slots_fit_int32(len(starts) * chunk_docs, length)
+    align = _wire_align()
+    cap = _bucket_cap_ids(chunk_docs, length, align)
+    wide = cfg.vocab_size > (1 << 16)
+
+    ph = {"pack": 0.0, "put": 0.0}
+    ctx = (contextlib.nullcontext(session) if session is not None
+           else fast_tokenizer.InternSession(cfg.vocab_size))
+    with ctx as sess:
+        def pack_exact(chunk_names):
+            flat, lengths, total = sess.pack_flat(
+                [os.path.join(input_dir, n) for n in chunk_names],
+                cfg.truncate_tokens_at, length, pad_docs_to=chunk_docs,
+                seed=cfg.hash_seed,
+                n_threads=getattr(cfg, "pack_threads", None), align=align,
+                cap_ids=cap)
+            return _bucket_pad_flat(flat, total), lengths
+
+        df_acc = torch.zeros(cfg.vocab_size, dtype=torch.int32, device=dev)
+        trips: List[Tuple[torch.Tensor, ...]] = []
+        all_lengths = []
+        with _PackAhead(pack_exact, [names[s:s + chunk_docs]
+                                     for s in starts]) as packer:
+            for ci, start in enumerate(starts):
+                t0 = time.perf_counter()
+                flat, lengths = packer.get(ci)
+                ph["pack"] += time.perf_counter() - t0  # stall only
+                all_lengths.append(lengths[:len(names[start:start
+                                                      + chunk_docs])])
+                t0 = time.perf_counter()
+                lens = _upload(lengths, dev)
+                i_, c_, h_, df_acc = _chunk_ragged(
+                    _upload(flat, dev), lens, df_acc, length=length,
+                    vocab_size=cfg.vocab_size, align=align)
+                trips.append((i_, c_, h_, lens))
+                ph["put"] += time.perf_counter() - t0
+        ph["pack_host"] = packer.host_seconds
+        t0 = time.perf_counter()
+        _, wire = _score_pack_wire(*(list(p) for p in zip(*trips)), df_acc,
+                                   num_docs, topk=k, score_dtype=score_dtype,
+                                   wide_ids=wide, include_vals=False,
+                                   include_counts=True)
+        buf = _HostCopy(wire).result()
+        ph["fetch"] = time.perf_counter() - t0
+        words = sess.words()
+    tids, cnt, df_vec = _decode_wire_exact(buf, len(starts) * chunk_docs, k,
+                                           wide_ids=wide)
+    return ExactIngest(names=names, lengths=np.concatenate(all_lengths),
+                       topk_ids=tids[:num_docs], topk_counts=cnt[:num_docs],
+                       df=df_vec, num_docs=num_docs, words=words, phases=ph)
+
+
+def profile_resident(input_dir: str, config: Optional[PipelineConfig] = None,
+                     chunk_docs: int = 8192, doc_len: Optional[int] = None,
+                     strict: bool = True, device=None) -> Dict[str, float]:
+    """Serialized phase profile of the resident run
+    (``tfidf_tpu/ingest.py:2637``): every phase fenced with
+    ``torch.cuda.synchronize`` so each is a true cost of its own. ``pack``
+    (every chunk's host pack; the bytes wire adds ``pack_load`` and
+    ``pack_slab``), ``upload`` (the host->device copies alone),
+    ``compute`` (the chunk steps and the finish the resolved structure
+    runs: the scan or the chunked finish on the packed result wire, the
+    fused finish on the pair wire), ``compute_warm`` (the same again),
+    ``compute_marginal`` (one more of 4 chained runs: the chain of 4
+    less one warm run, over 3, at least a 16th of a warm run), ``fetch``
+    and ``fetch_warm`` (the results' copy to the host, twice), the wire
+    byte counts and ``n_phase_b_dispatches``. The fenced wall exceeds
+    the overlapped run's by what the overlap hides."""
+    cfg = config or PipelineConfig(vocab_mode=VocabMode.HASHED, topk=16)
+    dev = resolve_device(device)
+    length = doc_len or cfg.max_doc_len
+    names = discover_names(input_dir, strict)
+    num_docs = len(names)
+    score_dtype = canonical_score_dtype(cfg.score_dtype)
+    k = min(cfg.topk, length)
+    chunk_docs, starts = _resident_chunking(num_docs, chunk_docs)
+    bwire = use_bytes_wire(cfg, chunk_docs, length)
+    ragged = (not bwire) and use_ragged_wire(cfg, chunk_docs, length)
+    align = _wire_align()
+    pack_stats: Dict[str, float] = {}
+    if bwire:
+        pack = make_bytes_packer(input_dir, cfg, chunk_docs, length,
+                                 stats=pack_stats)
+    elif ragged:
+        pack = make_flat_packer(input_dir, cfg, chunk_docs, length)
+    else:
+        pack = make_chunk_packer(input_dir, cfg, chunk_docs, length)
+
+    ph: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    packed = [pack(names[s:s + chunk_docs]) for s in starts]
+    ph["pack"] = time.perf_counter() - t0
+    for key, secs in pack_stats.items():
+        ph[f"pack_{key}"] = secs  # bytes wire: pack = load + slab
+    use_native = (cfg.tokenizer is TokenizerKind.WHITESPACE
+                  and fast_tokenizer.loader_available())
+    itemsize = 2 if (use_native and cfg.vocab_size <= (1 << 16)) else 4
+    ph["bytes_on_wire"] = float(sum(p[0].nbytes + p[1].nbytes
+                                    for p in packed))
+    ph["bytes_on_wire_padded"] = float(
+        len(packed) * chunk_docs * length * itemsize
+        + sum(p[1].nbytes for p in packed))
+
+    t0 = time.perf_counter()
+    wire_parts = [_upload(p[0], dev) for p in packed]
+    len_parts = [_upload(p[1], dev) for p in packed]
+    _sync(dev)
+    ph["upload"] = time.perf_counter() - t0
+
+    packed_wire = use_packed_result_wire(cfg)
+    scan_finish = use_scan_finish(cfg, packed_wire)
+    ph["n_phase_b_dispatches"] = float(1 if (scan_finish or not packed_wire)
+                                       else len(starts))
+
+    def compute_once():
+        df_acc = torch.zeros(cfg.vocab_size, dtype=torch.int32, device=dev)
+        trips = []
+        for wire, lens in zip(wire_parts, len_parts):
+            if bwire:  # the finish reads the device-derived token lengths
+                *trip, df_acc, lens = _chunk_bytes(
+                    wire, lens, df_acc, length=length,
+                    vocab_size=cfg.vocab_size, seed=cfg.hash_seed,
+                    truncate_at=cfg.truncate_tokens_at, align=align)
+            else:
+                *trip, df_acc = _chunk_step(wire, lens, df_acc, cfg, length,
+                                            ragged)
+            trips.append((*trip, lens))
+        parts = [list(p) for p in zip(*trips)]
+        if packed_wire:
+            idf = _final_idf(df_acc, num_docs, score_dtype=score_dtype)
+            if scan_finish:
+                return [_phase_b_scan_packed(*parts, idf, topk=k)]
+            return [_phase_b_cached_packed(*trip, idf, topk=k)
+                    for trip in trips]
+        return [_score_pack_wire(*parts, df_acc, num_docs, topk=k,
+                                 score_dtype=score_dtype,
+                                 wide_ids=cfg.vocab_size > (1 << 16))[1]]
+
+    t0 = time.perf_counter()
+    out = compute_once()
+    _sync(dev)
+    ph["compute"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compute_once()
+    _sync(dev)
+    warm = ph["compute_warm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(4):
+        compute_once()
+    _sync(dev)
+    ph["compute_marginal"] = max((time.perf_counter() - t0 - warm) / 3,
+                                 warm / 16)
+    for key in ("fetch", "fetch_warm"):
+        t0 = time.perf_counter()
+        for t in out:
+            _HostCopy(t).result()
+        ph[key] = time.perf_counter() - t0
+    ph["bytes_off_wire"] = float(sum(t.nbytes for t in out))
+    ph["bytes_off_wire_pair"] = float(
+        len(starts) * chunk_docs * k * pair_slot_bytes(score_dtype))
+    return ph

@@ -1,7 +1,8 @@
 """Corpus discovery, loading, and static-shape packing.
 
-The port's copy of the padded-batch and ragged-batch parts of
-``tfidf_tpu/io/corpus.py``.
+The port's copy of ``tfidf_tpu/io/corpus.py``: the padded and ragged
+batches, the raw-byte batch of the device chargram (:func:`pack_bytes`)
+and the native directory loader (:func:`load_and_pack`).
 Discovery honours the reference contract: ``doc1..docN`` named by the
 entry count of the input directory (``TFIDF.c:98-110,132-133``), a
 missing file is a hard error (``TFIDF.c:137``); ``strict=False`` takes
@@ -24,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
+from tfidf_tpu_torch.io import fast_tokenizer
 from tfidf_tpu_torch.ops.hashing import words_to_ids
 from tfidf_tpu_torch.ops.tokenize import char_ngrams, whitespace_tokenize
 
@@ -152,6 +154,39 @@ def pack_ragged(corpus: "Corpus", config: PipelineConfig,
                     want_words=want_words), align)
 
 
+@dataclasses.dataclass
+class PackedBytes:
+    """Raw-byte device input of the device chargram.
+
+    byte_ids: int32 [D, B] raw bytes (0..255), zero-padded.
+    byte_lengths: int32 [D] live byte counts.
+    """
+
+    byte_ids: np.ndarray
+    byte_lengths: np.ndarray
+    num_docs: int
+    names: List[str]
+
+
+def pack_bytes(corpus: Corpus, pad_docs_to: Optional[int] = None,
+               pad_len_to: int = 128) -> PackedBytes:
+    """Pack raw document bytes for on-device n-gram hashing: B is the
+    longest document rounded up to a ``pad_len_to`` multiple (at least
+    one)."""
+    d = len(corpus)
+    d_padded = max(pad_docs_to or d, d)
+    max_len = max((len(doc) for doc in corpus.docs), default=1)
+    b = max(-(-max_len // pad_len_to) * pad_len_to, pad_len_to)
+    byte_ids = np.zeros((d_padded, b), dtype=np.int32)
+    lengths = np.zeros((d_padded,), dtype=np.int32)
+    for i, doc in enumerate(corpus.docs):
+        byte_ids[i, :len(doc)] = np.frombuffer(doc, np.uint8)
+        lengths[i] = len(doc)
+    names = list(corpus.names) + [""] * (d_padded - d)
+    return PackedBytes(byte_ids=byte_ids, byte_lengths=lengths,
+                       num_docs=d, names=names)
+
+
 def discover_names(input_dir: str, strict: bool = True) -> List[str]:
     """The reference's discovery contract, names only: strict counts
     every directory entry (subdirectories included) and derives
@@ -171,6 +206,31 @@ def discover_corpus(input_dir: str, strict: bool = True) -> Corpus:
         with open(os.path.join(input_dir, name), "rb") as f:
             docs.append(f.read())
     return Corpus(names=names, docs=docs)
+
+
+def load_and_pack(input_dir: str, config: PipelineConfig,
+                  strict: bool = True,
+                  pad_docs_to: Optional[int] = None) -> PackedBatch:
+    """Directory -> padded batch. HASHED whitespace configs go through
+    the native parallel loader (read, tokenize, hash and pack in C++
+    threads; uint16 ids within 2^16); the rest, or no native library,
+    through :func:`discover_corpus` + :func:`pack_corpus`: the same
+    ids, lengths and shape."""
+    if not (config.vocab_mode is VocabMode.HASHED
+            and config.tokenizer is TokenizerKind.WHITESPACE
+            and fast_tokenizer.loader_available()):
+        return pack_corpus(discover_corpus(input_dir, strict=strict), config,
+                           pad_docs_to=pad_docs_to, want_words=False)
+    names = discover_names(input_dir, strict)
+    token_ids, lengths = fast_tokenizer.load_pack_paths(
+        [os.path.join(input_dir, n) for n in names], config.vocab_size,
+        config.hash_seed, config.truncate_tokens_at,
+        min_len=config.max_doc_len, chunk=config.doc_chunk,
+        pad_docs_to=pad_docs_to)
+    return PackedBatch(
+        token_ids=token_ids, lengths=lengths, num_docs=len(names),
+        names=names + [""] * (token_ids.shape[0] - len(names)),
+        vocab_size=config.vocab_size, id_to_word={})
 
 
 def _tokens_for(doc: bytes, config: PipelineConfig) -> List[bytes]:

@@ -12,6 +12,11 @@
   intern}.cc``) compiled with ``g++`` (the flags of ``native/Makefile``'s
   ``fast_tokenizer.so`` rule), on the CPU as on the card, at the first
   packer call. The port never writes into ``native/``.
+* The native bit-reference (:func:`load_oracle`): the repository's
+  ``native/tfidf_ref.cc`` + ``comm.cc`` (the MPI reference's semantics
+  on thread or process ranks) built with ``g++`` into an executable,
+  the flags of ``native/Makefile``'s ``tfidf_ref`` rule, at the first
+  ``cli run --backend mpi``.
 
 Every build is reported with its wall seconds to the process compile
 watch (``obs.devmon.note_build``; a no-op unless a server installed one).
@@ -46,6 +51,9 @@ HOST_SOURCE_DIR = _PKG.parent / "native"
 HOST_SOURCES = ("fast_tokenizer.cc", "loader.cc", "rerank.cc", "intern.cc")
 HOST_LIB_STEM = "libtfidf_host"
 HOST_FLAGS = ["-O2", "-std=c++17", "-pthread", "-shared", "-fPIC"]
+ORACLE_SOURCES = ("tfidf_ref.cc", "comm.cc")
+ORACLE_STEM = "tfidf_ref"
+ORACLE_FLAGS = ["-O2", "-std=c++17", "-Wall", "-Wextra", "-pthread"]
 
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -90,12 +98,13 @@ def sources() -> List[Path]:
     return sorted(SOURCE_DIR.glob("*.cu"))
 
 
-def _hashed_path(stem: str, flags: List[str], srcs) -> Path:
+def _hashed_path(stem: str, flags: List[str], srcs, suffix: str = ".so"
+                 ) -> Path:
     h = hashlib.sha256(" ".join(flags).encode())
     for src in srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}{suffix}"
 
 
 def library_path() -> Path:
@@ -113,6 +122,14 @@ def host_library_path() -> Path:
     return _hashed_path(HOST_LIB_STEM, HOST_FLAGS,
                         [*host_sources(),
                          HOST_SOURCE_DIR / "tokenize_common.h"])
+
+
+def oracle_path() -> Path:
+    """Where the native bit-reference executable for the current sources
+    lives (``comm.h`` is hashed too)."""
+    return _hashed_path(ORACLE_STEM, ORACLE_FLAGS,
+                        [*(HOST_SOURCE_DIR / n for n in ORACLE_SOURCES),
+                         HOST_SOURCE_DIR / "comm.h"], suffix="")
 
 
 @contextlib.contextmanager
@@ -216,6 +233,41 @@ def build_host() -> dict:
     seconds = time.perf_counter() - t0
     _report("host", seconds, out)
     return {"path": str(out), "seconds": seconds, "log": "\n".join(log)}
+
+
+def build_oracle() -> dict:
+    """Compile the native bit-reference executable with one ``g++``
+    call. Returns ``{"path", "seconds", "log"}``; raises RuntimeError
+    with g++'s output when it fails."""
+    out = oracle_path()
+    t0 = time.perf_counter()
+    with _build_lock("oracle"), \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        if out.exists():  # built by another process while we waited
+            return {"path": str(out), "seconds": 0.0, "log": ""}
+        cxx = os.environ.get("CXX") or "g++"
+        staged = Path(tmp) / out.name
+        proc = subprocess.run(
+            [cxx, *ORACLE_FLAGS, "-o", str(staged),
+             *(str(HOST_SOURCE_DIR / n) for n in ORACLE_SOURCES)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed on the native reference:\n"
+                               + proc.stdout)
+        os.replace(staged, out)
+    seconds = time.perf_counter() - t0
+    _report("oracle", seconds, out)
+    return {"path": str(out), "seconds": seconds, "log": proc.stdout}
+
+
+def load_oracle() -> Path:
+    """The native bit-reference executable, built first when its
+    sources changed. Raises (OSError, RuntimeError) when it cannot be
+    built."""
+    path = oracle_path()
+    if not path.exists():
+        build_oracle()
+    return path
 
 
 def _report(program: str, seconds: float, out: Path) -> None:

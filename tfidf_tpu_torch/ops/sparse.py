@@ -155,6 +155,47 @@ def score_topk(ids: torch.Tensor, counts: torch.Tensor, head: torch.Tensor,
     return fused_score_topk(ids, counts, head, lengths, idf, k=k)
 
 
+def sparse_topk_counts(ids: torch.Tensor, counts: torch.Tensor,
+                       head: torch.Tensor, lengths: torch.Tensor,
+                       idf: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`score_topk` that also returns the picked slots' integer
+    counts (``tfidf_tpu/ops/sparse.py:318``; the exact-ids wire's
+    payload): ``(vals, tids, cnt)``, invalid picks ``(0, -1, 0)``.
+
+    On the CPU this is the plain version, a copy of the JAX function:
+    score, stable sort, gather ids and counts. On CUDA the fused kernel
+    selects (:func:`score_topk`, the same picks in the same order) and
+    each pick's count is read back by :func:`pick_counts`."""
+    if ids.device.type == "cpu":
+        k = min(k, ids.shape[1])
+        scores = sparse_scores(ids, counts, head, lengths, idf)
+        neg = torch.finfo(scores.dtype).min
+        vals, sel = torch.sort(torch.where(head, scores, neg), dim=1,
+                               descending=True, stable=True)
+        vals, sel = vals[:, :k], sel[:, :k]
+        ok = vals > neg
+        zero = torch.zeros((), dtype=vals.dtype)
+        return (torch.where(ok, vals, zero),
+                torch.where(ok, torch.gather(ids, 1, sel), -1).to(torch.int32),
+                torch.where(ok, torch.gather(counts, 1, sel), 0)
+                .to(torch.int32))
+    vals, tids = score_topk(ids, counts, head, lengths, idf, k)
+    return vals, tids, pick_counts(ids, counts, tids)
+
+
+def pick_counts(ids: torch.Tensor, counts: torch.Tensor,
+                tids: torch.Tensor) -> torch.Tensor:
+    """In-document counts of picked term ids ``tids`` [D, k] (-1 = no
+    pick, count 0) from sorted triples: each row of ``ids`` ascends with
+    an ``INT32_MAX`` tail, so the first slot holding a term is its head
+    slot, which holds its count; ``torch.searchsorted`` finds it."""
+    pos = torch.searchsorted(ids.contiguous(), tids.contiguous())
+    pos = pos.clamp_max(ids.shape[1] - 1)
+    return torch.where(tids >= 0, torch.gather(counts, 1, pos),
+                       0).to(torch.int32)
+
+
 def sparse_forward(token_ids: torch.Tensor, lengths: torch.Tensor, num_docs: int,
                    *, vocab_size: int, score_dtype, topk: Optional[int]):
     """Full sparse pipeline step: tokens -> (df, topk | row-sparse scores).

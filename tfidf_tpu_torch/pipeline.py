@@ -18,10 +18,17 @@ byte-identical to the reference.
 :class:`RaggedBatch`, whose flat id stream is rebuilt into the padded
 batch on the device by the ragged-rebuild kernel.
 
+``run_bytes`` is the device chargram (a CHARGRAM hashed top-k config's
+route through ``run``): raw document bytes go to the device, which
+hashes every n-gram window in one sweep (``ops.hashing``), then either
+the dense engine (a masked scatter histogram, dense tf*idf, a stable
+sort for the top-k) or the sparse one (sort+RLE triples of the masked
+streams, the fused score+top-k kernel) runs, as the JAX package lowers
+it.
+
 The pipeline runs on CUDA unless the caller names another device; with
 no GPU and no device named it raises instead of running on the CPU.
-Mesh configs and the device-chargram path (``run_bytes``) are not
-ported yet and raise ``NotImplementedError``.
+Mesh configs are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,12 +43,16 @@ from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
 from tfidf_tpu_torch.formatter import (format_records, format_sparse_records,
                                        to_output_bytes)
 from tfidf_tpu_torch.io.corpus import (Batch, Corpus, PackedBatch,
-                                       RaggedBatch, pack_corpus)
+                                       RaggedBatch, pack_bytes, pack_corpus)
 from tfidf_tpu_torch.ops.downlink import (unpack_result_words,
                                           use_packed_result_wire)
+from tfidf_tpu_torch.ops.hashing import device_ngram_ids_multi
+from tfidf_tpu_torch.ops.histogram import df_from_counts, tf_counts_masked
 from tfidf_tpu_torch.ops.kernels import pack_words, ragged_rebuild, tf_df
-from tfidf_tpu_torch.ops.scoring import canonical_score_dtype, tfidf_dense
-from tfidf_tpu_torch.ops.sparse import sparse_forward
+from tfidf_tpu_torch.ops.scoring import (canonical_score_dtype, idf_from_df,
+                                         tfidf_dense)
+from tfidf_tpu_torch.ops.sparse import (score_topk, sorted_term_counts_masked,
+                                        sparse_df, sparse_forward)
 from tfidf_tpu_torch.ops.topk import topk_per_doc
 from tfidf_tpu_torch.utils.timing import PhaseTimedMixin, PhaseTimer
 
@@ -128,6 +139,55 @@ def _forward(token_ids: torch.Tensor, lengths: torch.Tensor, num_docs: int, *,
         tv, ti = topk_per_doc(scores, min(topk, vocab_size))
         return df, tv, ti
     return counts, df, scores
+
+
+def _ngram_streams(byte_ids: torch.Tensor, byte_lengths: torch.Tensor, *,
+                   vocab_size: int, ngram_lo: int, ngram_hi: int, seed: int):
+    """Every n's window ids of one Horner sweep, concatenated along the
+    token axis with their validity (windows never span documents, and
+    DF, TF and top-k only count), and docSize, the total n-gram count
+    ``sum_n max(len - (n - 1), 0)``."""
+    streams = device_ngram_ids_multi(byte_ids, byte_lengths, ngram_lo,
+                                     ngram_hi, vocab_size, seed)
+    total_len = sum(torch.clamp_min(byte_lengths - (n - 1), 0)
+                    for n in range(ngram_lo, ngram_hi + 1)).to(torch.int32)
+    return (torch.cat([i for i, _ in streams], dim=1),
+            torch.cat([v for _, v in streams], dim=1), total_len)
+
+
+def _chargram_forward(byte_ids, byte_lengths, num_docs: int, *,
+                      vocab_size: int, ngram_lo: int, ngram_hi: int,
+                      seed: int, score_dtype, topk: Optional[int]):
+    """The dense device chargram: raw bytes -> (df, docSize, vals, ids)
+    with ``topk``, else (counts, df, docSize, scores). The TF histogram
+    is one masked scatter over every n's stream (the JAX package's XLA
+    scatter, not the TF/DF kernel)."""
+    ids, valid, total_len = _ngram_streams(
+        byte_ids, byte_lengths, vocab_size=vocab_size, ngram_lo=ngram_lo,
+        ngram_hi=ngram_hi, seed=seed)
+    counts = tf_counts_masked(ids, valid, vocab_size)
+    df = df_from_counts(counts)
+    scores = tfidf_dense(counts, total_len, df, num_docs, score_dtype)
+    if topk is not None:
+        tv, ti = topk_per_doc(scores, min(topk, vocab_size))
+        return df, total_len, tv, ti
+    return counts, df, total_len, scores
+
+
+def _chargram_sparse_forward(byte_ids, byte_lengths, num_docs: int, *,
+                             vocab_size: int, ngram_lo: int, ngram_hi: int,
+                             seed: int, score_dtype, topk: int):
+    """The row-sparse device chargram, the wide-vocab lowering with no
+    [D, V] matrix: sort+RLE triples of the masked streams, DF, then the
+    fused score+top-k kernel. -> (df, docSize, vals, ids)."""
+    ids, valid, total_len = _ngram_streams(
+        byte_ids, byte_lengths, vocab_size=vocab_size, ngram_lo=ngram_lo,
+        ngram_hi=ngram_hi, seed=seed)
+    s_ids, counts, head = sorted_term_counts_masked(ids, valid)
+    df = sparse_df(s_ids, head, vocab_size)
+    idf = idf_from_df(df, num_docs, score_dtype)
+    tv, ti = score_topk(s_ids, counts, head, total_len, idf, topk)
+    return df, total_len, tv, ti
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -235,10 +295,49 @@ class TfidfPipeline(PhaseTimedMixin):
         return result
 
     def run_bytes(self, corpus: Corpus) -> PipelineResult:
-        """The device-chargram path of the JAX package (raw bytes in,
-        n-gram ids hashed on the device) — not ported yet."""
-        raise NotImplementedError(
-            "run_bytes (device chargram) is not ported yet: ROADMAP A5")
+        """The device chargram: raw bytes in, n-gram ids hashed on the
+        device. An explicit ``engine="sparse"`` takes the row-sparse
+        lowering; a defaulted engine keeps the dense histogram up to
+        vocab 2^16 and goes sparse past it (the JAX package's rule).
+        Top-k selections leave the device as packed words when the word
+        can carry the run, else as the full-precision pair."""
+        cfg = self.config
+        if cfg.tokenizer is not TokenizerKind.CHARGRAM:
+            raise ValueError("run_bytes is the chargram device path")
+        if cfg.vocab_mode is not VocabMode.HASHED:
+            raise ValueError("device chargram requires HASHED vocab "
+                             "(EXACT needs host-side n-gram strings)")
+        self._check_single_device()
+        lo, hi = cfg.ngram_range
+        with self._phase("pack"):
+            packed = pack_bytes(corpus)
+        with self._phase("transfer"):
+            byte_ids = torch.from_numpy(packed.byte_ids).to(self.device)
+            byte_lens = torch.from_numpy(packed.byte_lengths).to(self.device)
+        use_sparse = (cfg.engine == "sparse"
+                      and (not getattr(cfg, "_engine_defaulted", False)
+                           or cfg.vocab_size > (1 << 16)))
+        if use_sparse and cfg.topk is None:
+            raise ValueError("the sparse device chargram serves top-k runs")
+        fwd = _chargram_sparse_forward if use_sparse else _chargram_forward
+        with self._phase("compute"):
+            out = fwd(byte_ids, byte_lens, packed.num_docs,
+                      vocab_size=cfg.vocab_size, ngram_lo=lo, ngram_hi=hi,
+                      seed=cfg.hash_seed,
+                      score_dtype=canonical_score_dtype(cfg.score_dtype),
+                      topk=cfg.topk)
+        with self._phase("fetch"):
+            if cfg.topk is not None:
+                df, total_len, tv, ti = out
+                df, vals, ids = self._fetch_topk(df, tv, ti, cfg.vocab_size)
+                return PipelineResult(
+                    counts=None, lengths=_host(total_len), df=df,
+                    num_docs=packed.num_docs, names=packed.names,
+                    id_to_word={}, topk_vals=vals, topk_ids=ids)
+            counts, df, total_len, scores = (_host(t) for t in out)
+        return PipelineResult(counts=counts, lengths=total_len, df=df,
+                              num_docs=packed.num_docs, names=packed.names,
+                              id_to_word={}, scores=scores)
 
     def run(self, corpus: Corpus) -> PipelineResult:
         cfg = self.config

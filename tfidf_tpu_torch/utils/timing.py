@@ -46,6 +46,12 @@ class PhaseTimer:
         """Seconds per phase, in first-seen order."""
         return dict(self._acc)
 
+    def report(self) -> str:
+        """One line a phase: milliseconds and share of the total."""
+        total = sum(self._acc.values()) or 1.0
+        return "\n".join(f"{n:>12}: {s * 1e3:9.1f} ms ({100 * s / total:4.1f}%)"
+                         for n, s in self._acc.items())
+
 
 @contextlib.contextmanager
 def _cuda_phase(timer: PhaseTimer, name: str,
