@@ -70,8 +70,9 @@ Phases, each printed as one JSON line:
    once per wire (ragged, bytes, padded): the native loader ran, B4 / B5 /
    B1 / B3 launched, the three wires give identical words, df and
    lengths, the ragged run equals the port's CPU run (``compare_topk``)
-   and ``TfidfPipeline.run`` on the same documents. Prints warm wall,
-   docs/s, phases and the result's fields per wire, and a device
+   and ``TfidfPipeline.run`` on the same documents. Prints the wall
+   (after one cold ragged run; the bytes and padded wires run once
+   each), docs/s, phases and the result's fields per wire, and a device
    profile of one warm ragged run.
 8. ``path_ingest_streaming``: the 32,768-doc corpus in the streaming
    regime (``TFIDF_TPU_RESIDENT_ELEMS`` below it, 4 chunks of 8,192, the
@@ -146,7 +147,29 @@ Phases, each printed as one JSON line:
    each engine's run on the first 1,024 docs equals the CPU's bit for
    bit; docs/s, MB/s and a device profile of one warm run each; B1 at
    the chargram's row width (12,288 slots) against its plain version.
-15. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
+15. ``path_mesh``: the mesh run paths on 4 virtual shards of the card
+   (``MeshPlan.create(docs=4, devices=["cuda:0"] * 4)``), each held bit
+   for bit against the port's single-device run on the card: before it,
+   three ``python -m tfidf_tpu_torch.cli run --doc-len 256`` subprocesses
+   without ``--device`` over the 32,768 files at once (plain,
+   ``--mesh 1,1,1`` and ``--ingest-workers 4``), the last two's bytes
+   held to the first's. ``ShardedPipeline.run_packed`` of the 32,768-doc
+   batch, sparse at docs 4 (B1 and B3 once a shard) and dense at {docs
+   2, vocab 2} (B2 a shard, at id offsets 0 and 2,048) and {docs 2, seq
+   2}; the golden 64 docs at docs 4 (``golden_output``'s bytes); both
+   device-chargram lowerings at docs 4 on ``path_chargram``'s files;
+   ``run_overlapped(plan=)`` over the 131,072 files (``resident-mesh``,
+   B1 and B3 once a shard a chunk; DF and words equal
+   ``path_ingest_resident``'s), one warm run profiled for its device
+   idle share; the streaming mesh over the 32,768 files (2 of 4 chunks'
+   triples cached, the rest re-read) equal to the single-device
+   streaming run.
+16. ``path_multiprocess``: ``run_sharded_ingest`` over the 131,072 files
+   with 2 and then 4 worker processes sharing the card, ``repeat`` 2:
+   the merged result equal to ``path_ingest_resident``'s; B4, B1 and B3
+   launched in every worker; each worker's walls, upload seconds,
+   link utilization, reserved bytes and the card's bytes in use.
+17. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
    131,072-doc index at ``ServeConfig`` defaults (max_batch 256), warmed
    over every query bucket, under 8 client threads of 32 requests each
    (1-4 of the Zipf queries, k 10, tfidf / bm25 / tfidf + id_range in
@@ -1100,7 +1123,8 @@ def path_ingest_resident(T, K, FT, ingest, root, corpus_docs, total):
         root, cfg[w], chunk_docs=N_DOCS, doc_len=DOC_LEN)) for w in cfg}
     results, per_wire = {}, {}
     for w in cfg:
-        run[w]()  # cold: the first run of each wire pays its set-up
+        if w == "ragged":  # cold: the first ingest pays the set-up
+            run[w]()
         r, wall, launches, native = _counted_run(K, FT, run[w])
         for kernel, c in launches.items():
             total[kernel] += c
@@ -1147,6 +1171,7 @@ def path_ingest_resident(T, K, FT, ingest, root, corpus_docs, total):
     prof = profile_summary(run["ragged"])
     emit({"phase": "path_ingest_resident", "docs": n, "chunk_docs": N_DOCS,
           "doc_len": DOC_LEN, "vocab": SPARSE_VOCAB, "topk": TOPK,
+          "cold_runs": ["ragged"],
           "wires": per_wire, "wires_identical": True, "vs_cpu": vs_cpu,
           "vs_tfidf_pipeline": vs_pipe,
           "device_profile_ragged": prof, "ok": True})
@@ -1189,7 +1214,7 @@ def path_ingest_streaming(T, K, FT, ingest, root, total):
                                      chunk_docs=STREAM_CHUNK, doc_len=DOC_LEN)
     check(resident.path == "resident", "path_ingest_streaming: reference "
           "run is not resident")
-    runs = {}
+    runs, results = {}, {}
     with env_vars(**env):
         for w in ("ragged", "bytes"):
             for spill in ("host", "reread"):
@@ -1211,6 +1236,7 @@ def path_ingest_streaming(T, K, FT, ingest, root, total):
                 check(_same_result(r, resident),
                       f"path_ingest_streaming {label}: differs from the "
                       f"resident run")
+                results[label] = r
                 runs[label] = {"wall_s": wall, "docs_per_s": n / wall,
                                "launches": launches, "native_calls": native,
                                "phases": r.phases,
@@ -1218,6 +1244,7 @@ def path_ingest_streaming(T, K, FT, ingest, root, total):
     emit({"phase": "path_ingest_streaming", "docs": n,
           "chunk_docs": STREAM_CHUNK, "env": env, "runs": runs,
           "equal_to_resident": True, "ok": True})
+    return results["ragged_reread"]
 
 
 def retrieval_queries(rng, n: int = RETR_QUERIES):
@@ -2194,6 +2221,20 @@ def chargram_triples(corpus):
     return s_ids, counts, head, tlen, idf
 
 
+def chargram_cfgs(T, **extra):
+    """path_chargram's two configs: the sparse lowering at V 2^20
+    (explicit engine) and the dense one at V 2^16 (defaulted engine);
+    ``extra`` fields (a mesh_shape) on both, each config made fresh so a
+    defaulted engine stays defaulted."""
+    return {"sparse": T.PipelineConfig(
+                vocab_mode=T.VocabMode.HASHED, tokenizer=T.TokenizerKind.CHARGRAM,
+                vocab_size=CHARGRAM_SPARSE_VOCAB, topk=TOPK, engine="sparse",
+                **extra),
+            "dense": T.PipelineConfig(
+                vocab_mode=T.VocabMode.HASHED, tokenizer=T.TokenizerKind.CHARGRAM,
+                vocab_size=SPARSE_VOCAB, topk=TOPK, **extra)}
+
+
 def path_chargram(T, K, FT, total):
     """BASELINE config 4 on the card: char 3..5-gram TF-IDF over source
     files through ``TfidfPipeline.run`` (the device chargram): the sparse
@@ -2208,12 +2249,7 @@ def path_chargram(T, K, FT, total):
     n = len(corpus)
     n_bytes = sum(map(len, corpus.docs))
     check(n >= CHARGRAM_CPU_DOCS, f"path_chargram: only {n} source files")
-    cfgs = {"sparse": T.PipelineConfig(
-                vocab_mode=T.VocabMode.HASHED, tokenizer=T.TokenizerKind.CHARGRAM,
-                vocab_size=CHARGRAM_SPARSE_VOCAB, topk=TOPK, engine="sparse"),
-            "dense": T.PipelineConfig(
-                vocab_mode=T.VocabMode.HASHED, tokenizer=T.TokenizerKind.CHARGRAM,
-                vocab_size=SPARSE_VOCAB, topk=TOPK)}
+    cfgs = chargram_cfgs(T)
     expect = {"sparse": "fused_score_topk", "dense": "pack_words"}
     small = T.Corpus(names=corpus.names[:CHARGRAM_CPU_DOCS],
                      docs=corpus.docs[:CHARGRAM_CPU_DOCS])
@@ -2277,6 +2313,281 @@ def path_chargram(T, K, FT, total):
           "max_bytes": CHARGRAM_BYTES, "ngram": [3, 5], "topk": TOPK,
           "slots_per_row": length, "sources": sources, "read_s": read_s,
           "engines": out, "b1_at_chargram_shape": b1,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return corpus
+
+
+# --- path_mesh and path_multiprocess: the parallel run paths ----------
+
+MESH_SHARDS = 4           # path_mesh: virtual shards of the one card
+MP_WORKERS = (2, 4)       # path_multiprocess: worker processes
+MP_REPEAT = 2             # path_multiprocess: timed runs in each worker
+
+
+def _same_topk(a, b, n: int) -> bool:
+    """Equal DF, and the first ``n`` rows' ids and score bits (either
+    wire: float16 words unpacked, or the float32 pair)."""
+    va, vb = np.asarray(a.topk_vals)[:n], np.asarray(b.topk_vals)[:n]
+    return (np.array_equal(a.df, b.df)
+            and np.array_equal(a.topk_ids[:n], b.topk_ids[:n])
+            and va.dtype == vb.dtype
+            and np.array_equal(va.view(np.uint8), vb.view(np.uint8)))
+
+
+def cli_runs(small, runs: dict) -> dict:
+    """``python -m tfidf_tpu_torch.cli run --doc-len`` over the 32,768
+    files once per entry of ``runs`` (label -> extra flags), all at once
+    in subprocesses without ``--device`` (so on cuda); raises unless each
+    exits 0. Returns label -> {"bytes", "seconds", "stderr"}."""
+    import concurrent.futures as cf
+
+    def one(label, extra, tmp):
+        path = os.path.join(tmp, f"{label}.txt")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tfidf_tpu_torch.cli", "run", "--input",
+             small, "--output", path, "--vocab-mode", "hashed", "--topk",
+             str(TOPK), "--doc-len", str(DOC_LEN), *extra],
+            capture_output=True, text=True, cwd=REPO, timeout=600)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cli {label} exit {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        with open(path, "rb") as f:
+            return {"bytes": f.read(), "seconds": secs,
+                    "stderr": proc.stderr}
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            cf.ThreadPoolExecutor(max_workers=len(runs)) as ex:
+        jobs = {label: ex.submit(one, label, extra, tmp)
+                for label, extra in runs.items()}
+        return {label: job.result() for label, job in jobs.items()}
+
+
+def path_mesh(T, K, ingest, corpus, gold, big, small, rg, streamed,
+              chargram, total, cli):
+    """The mesh run paths on MESH_SHARDS virtual shards of the card, each
+    held bit for bit against the port's single-device run."""
+    from tfidf_tpu_torch.golden import golden_output
+    from tfidf_tpu_torch.parallel import MeshPlan, ShardedPipeline
+    from tfidf_tpu_torch.parallel import collectives as C
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    plan = MeshPlan.create(docs=MESH_SHARDS, devices=[cuda] * MESH_SHARDS)
+    n = len(corpus)
+    out = {}
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def counted(label, fn, expect):
+        K.reset_launches()
+        r, wall = walled(fn)
+        launches = dict(K.LAUNCHES)
+        for kernel in expect:
+            check(launches[kernel] > 0,
+                  f"path_mesh {label}: {kernel} never launched")
+        for kernel, c in launches.items():
+            total[kernel] += c
+        out[label] = {"wall_s": wall, "launches": launches}
+        return r, launches
+
+    # ShardedPipeline, sparse at docs 4: B1 and B3 on every shard
+    sparse_cfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                                  vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                                  doc_chunk=DOC_LEN, topk=TOPK)
+    batch = T.pack_corpus(corpus, sparse_cfg)
+    single, single_s = walled(
+        lambda: T.TfidfPipeline(sparse_cfg).run_packed(batch))
+    mesh, launches = counted(
+        "sparse_docs4", lambda: ShardedPipeline(plan, sparse_cfg)
+        .run_packed(batch), ("fused_score_topk", "pack_words"))
+    check(launches["fused_score_topk"] == MESH_SHARDS
+          and launches["pack_words"] == MESH_SHARDS,
+          f"path_mesh sparse_docs4: launches {launches}")
+    check(_same_topk(mesh, single, n), "path_mesh sparse_docs4: differs "
+          "from the single-device run")
+    out["sparse_docs4"]["single_wall_s"] = single_s
+
+    # ShardedPipeline, dense at {docs 2, vocab 2} and {docs 2, seq 2}:
+    # B2 per shard, at id offsets 0 and V / 2 on the vocab mesh
+    dense_cfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                                 vocab_size=DENSE_VOCAB, max_doc_len=DOC_LEN,
+                                 doc_chunk=DOC_LEN, topk=TOPK, engine="dense",
+                                 result_wire="pair")
+    dbatch = T.pack_corpus(corpus, dense_cfg)
+    dsingle, dsingle_s = walled(
+        lambda: T.TfidfPipeline(dense_cfg).run_packed(dbatch))
+    offsets = []
+    tf_df = C.tf_df
+
+    def tf_df_spy(*args, **kwargs):
+        offsets.append(kwargs.get("id_offset", 0))
+        return tf_df(*args, **kwargs)
+
+    C.tf_df = tf_df_spy
+    try:
+        for label, shape, want_offsets in (
+                ("dense_docs2_vocab2", {"docs": 2, "vocab": 2},
+                 [0, DENSE_VOCAB // 2]),
+                ("dense_docs2_seq2", {"docs": 2, "seq": 2}, [0])):
+            p = MeshPlan.create(**shape, devices=[cuda] * 4)
+            offsets.clear()
+            r, launches = counted(label, lambda p=p: ShardedPipeline(
+                p, dense_cfg).run_packed(dbatch), ("tf_df",))
+            check(launches["tf_df"] == 4 and sorted(set(offsets))
+                  == want_offsets, f"path_mesh {label}: B2 launches "
+                  f"{launches['tf_df']}, id offsets {sorted(set(offsets))}")
+            check(_same_topk(r, dsingle, n), f"path_mesh {label}: differs "
+                  f"from the single-device run")
+            out[label].update(id_offsets=sorted(set(offsets)),
+                              single_wall_s=dsingle_s)
+    finally:
+        C.tf_df = tf_df
+    # the golden 64 docs at docs 4
+    g, _ = counted("golden_docs4", lambda: T.TfidfPipeline(
+        T.PipelineConfig(mesh_shape={"docs": MESH_SHARDS}),
+        plan=plan).run(gold).output_bytes(), ("tf_df",))
+    check(g == golden_output(gold), "path_mesh golden_docs4: bytes differ "
+          "from golden_output")
+
+    # the device chargram at docs 4, both lowerings, on path_chargram's
+    # files
+    cn = len(chargram)
+    singles = chargram_cfgs(T)
+    for name, mcfg in chargram_cfgs(
+            T, mesh_shape={"docs": MESH_SHARDS}).items():
+        want = T.TfidfPipeline(singles[name]).run(chargram)
+        r, _ = counted(f"chargram_{name}_docs4", lambda mcfg=mcfg: T.TfidfPipeline(
+            mcfg, plan=plan).run(chargram), (
+            "fused_score_topk" if name == "sparse" else "pack_words",))
+        check(_same_topk(r, want, cn)
+              and np.array_equal(r.lengths[:cn], want.lengths),
+              f"path_mesh chargram_{name}_docs4: differs from run_bytes")
+
+    # run_overlapped(plan=docs 4) on the 131,072 files: one warm run
+    # (kernels built and loaded by the paths before), profiled
+    icfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                            vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                            doc_chunk=DOC_LEN, topk=TOPK)
+    held = []
+    K.reset_launches()
+    events, wall_ms = profiled(lambda: held.append(ingest.run_overlapped(
+        big, icfg, chunk_docs=N_DOCS, doc_len=DOC_LEN, plan=plan)))
+    launches = dict(K.LAUNCHES)
+    for kernel, c in launches.items():
+        total[kernel] += c
+    r = held[0]
+    n_chunks = INGEST_DOCS // N_DOCS
+    check(r.path == "resident-mesh" and r.result_wire == "packed"
+          and launches["fused_score_topk"] == MESH_SHARDS * n_chunks
+          and launches["pack_words"] == MESH_SHARDS * n_chunks,
+          f"path_mesh ingest: {_result_fields(r)}, launches {launches}")
+    check(_same_result(r, rg), "path_mesh ingest: DF or words differ from "
+          "path_ingest_resident's")
+    from torch.autograd import DeviceType
+    dev_ms = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+              if e.device_type == DeviceType.CUDA]
+    check(bool(dev_ms), "path_mesh ingest: the profiler recorded no device "
+          "activity")
+    busy = sum(ms for _, ms in dev_ms)
+    by_name = {}
+    for name, ms in dev_ms:
+        row = by_name.setdefault(name[:100], [0, 0.0])
+        row[0] += 1
+        row[1] += ms
+    out["ingest_resident_mesh"] = {
+        "docs": INGEST_DOCS, "chunk_docs": N_DOCS, "wall_s": wall_ms / 1e3,
+        "docs_per_s": INGEST_DOCS / (wall_ms / 1e3), "phases": r.phases,
+        "launches": launches, "fields": _result_fields(r),
+        "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+        "top": [{"name": k_, "count": c, "ms": ms} for k_, (c, ms) in
+                sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]]}
+
+    # the streaming mesh regime on the 32,768 files: the resident budget
+    # below them, 2 of 4 chunks' triples cached, the rest re-read (both
+    # budgets are the one card's: virtual shards share it)
+    env = {"TFIDF_TPU_RESIDENT_ELEMS": str(N_DOCS * DOC_LEN - 1),
+           "TFIDF_TPU_TRIPLE_CACHE_BYTES": str(
+               2 * (STREAM_CHUNK * DOC_LEN * 9 + STREAM_CHUNK * 4))}
+    with env_vars(**env):
+        r, _ = counted("ingest_streaming_mesh", lambda: ingest.run_overlapped(
+            small, icfg, chunk_docs=STREAM_CHUNK, doc_len=DOC_LEN, plan=plan,
+            spill="reread"), ("fused_score_topk", "pack_words"))
+    check(r.path == "streaming-mesh"
+          and r.phases["triple_cached_chunks"] == 2,
+          f"path_mesh ingest_streaming_mesh: {_result_fields(r)}")
+    check(_same_result(r, streamed), "path_mesh ingest_streaming_mesh: "
+          "differs from the single-device streaming run")
+    out["ingest_streaming_mesh"].update(env=env, phases=r.phases)
+
+    # cli run --mesh 1,1,1 --doc-len 256, no --device: the card
+    check(cli["mesh_111"]["bytes"] == cli["single"]["bytes"],
+          "path_mesh cli: --mesh 1,1,1 bytes differ from the single-device "
+          "CLI's")
+    out["cli_mesh_111"] = {"seconds": cli["mesh_111"]["seconds"],
+                           "bytes_equal": True,
+                           "single_seconds": cli["single"]["seconds"]}
+    emit({"phase": "path_mesh", "shards": MESH_SHARDS,
+          "devices": [str(d) for d in plan.devices], "docs": n,
+          "runs": out, "seconds": time.perf_counter() - t_phase, "ok": True})
+
+
+def path_multiprocess(T, K, _build, big, rg, total, cli):
+    """run_sharded_ingest: MP_WORKERS processes sharing the one card, each
+    ingesting a contiguous shard of the 131,072 files; the merged result
+    bit-equal to path_ingest_resident's."""
+    from tfidf_tpu_torch.parallel.multihost import run_sharded_ingest
+
+    t_phase = time.perf_counter()
+    _build.build()  # built once here; the workers find the libraries
+    _build.build_host()
+    icfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                            vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                            doc_chunk=DOC_LEN, topk=TOPK)
+    out = {}
+    for n in MP_WORKERS:
+        t0 = time.perf_counter()
+        r, info = run_sharded_ingest(big, icfg, n_workers=n,
+                                     chunk_docs=N_DOCS, doc_len=DOC_LEN,
+                                     repeat=MP_REPEAT, timeout_s=400)
+        call_s = time.perf_counter() - t0
+        check(r.path == f"sharded-{n}proc:resident",
+              f"path_multiprocess {n}: path {r.path}")
+        check(_same_result(r, rg), f"path_multiprocess {n}: the merged "
+              f"result differs from path_ingest_resident's")
+        for w, launches in enumerate(info.worker_launches):
+            for kernel in ("fused_score_topk", "pack_words",
+                           "ragged_rebuild"):
+                check(launches[kernel] > 0, f"path_multiprocess {n}: worker "
+                      f"{w} never launched {kernel}")
+            for kernel, c in launches.items():
+                total[kernel] += c
+        out[f"workers_{n}"] = {
+            "call_s": call_s, "wall_s": info.wall_s,
+            "docs_per_s": INGEST_DOCS / info.wall_s,
+            "worker_walls_s": info.worker_walls_s,
+            "upload_s": info.upload_s,
+            "worker_upload_s": info.worker_upload_s,
+            "link_utilization": info.link_utilization,
+            "worker_device_bytes": info.worker_device_bytes,
+            "card_bytes_in_use": info.card_bytes_in_use,
+            "worker_launches": info.worker_launches,
+            "worker_phases": info.worker_phases, "shards": info.shards}
+    workers = cli["workers_4"]
+    check(workers["bytes"] == cli["single"]["bytes"], "path_multiprocess "
+          "cli: --ingest-workers 4 bytes differ from the single-process CLI's")
+    lines = [ln for ln in workers["stderr"].splitlines()
+             if ln.startswith("sharded ingest: 4 workers")]
+    check(len(lines) == 1, "path_multiprocess cli: no sharded ingest line")
+    out["cli_workers_4"] = {"seconds": workers["seconds"],
+                            "bytes_equal": True, "stderr_line": lines[0]}
+    emit({"phase": "path_multiprocess", "docs": INGEST_DOCS,
+          "repeat": MP_REPEAT, "runs": out,
           "seconds": time.perf_counter() - t_phase, "ok": True})
 
 
@@ -2856,14 +3167,20 @@ def main() -> int:
               "bytes": [sum(map(len, big_docs)), sum(map(len, corpus.docs))],
               "write_s": time.perf_counter() - t0})
         rg = path_ingest_resident(T, K, FT, ingest, big, big_docs, total)
-        path_ingest_streaming(T, K, FT, ingest, small, total)
+        streamed = path_ingest_streaming(T, K, FT, ingest, small, total)
         r, rcfg, queries = path_retrieval(T, K, big, big_docs, total)
         from tfidf_tpu_torch.models import retrieval as R
         b6_kernel_cases(K, R, r, rcfg, queries, summary)
         path_stream(T, K, small, big_docs, rg.df, total)
         path_segmented(T, K, big_docs, queries, total)
         path_exact_terms(T, K, FT, ingest, big, small, total)
-        path_chargram(T, K, FT, total)
+        chargram = path_chargram(T, K, FT, total)
+        # the three CLI runs the next two phases check, run at once
+        cli = cli_runs(small, {"single": [], "mesh_111": ["--mesh", "1,1,1"],
+                               "workers_4": ["--ingest-workers", "4"]})
+        path_mesh(T, K, ingest, corpus, gold, big, small, rg, streamed,
+                  chargram, total, cli)
+        path_multiprocess(T, K, _build, big, rg, total, cli)
         # last: its profile of a multi-threaded load runs after every
         # other profile of the script
         path_serve(T, K, r, rcfg, queries, small, corpus, total)

@@ -175,11 +175,20 @@ def test_run_bytes_refusals():
         with pytest.raises(ValueError):
             T.TfidfPipeline(T.PipelineConfig(**base),
                             device="cpu").run_bytes(corpus)
-    cfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED, topk=2,
-                           tokenizer=T.TokenizerKind.CHARGRAM,
-                           mesh_shape={"docs": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        T.TfidfPipeline(cfg, device="cpu").run_bytes(corpus)
+    # The docs-sharded chargram runs now (tests/test_torch_parallel.py);
+    # a seq or vocab mesh is refused, as by the JAX package: an n-gram
+    # window spans adjacent bytes.
+    for mesh in ({"docs": 1, "seq": 2}, {"docs": 1, "vocab": 2}):
+        cfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED, topk=2,
+                               tokenizer=T.TokenizerKind.CHARGRAM,
+                               mesh_shape=mesh)
+        with pytest.raises(ValueError, match="docs only"):
+            T.TfidfPipeline(cfg, device="cpu").run_bytes(corpus)
+        with pytest.raises(ValueError, match="docs only"):
+            JPipeline(JConfig(vocab_mode=JV.HASHED, topk=2,
+                              tokenizer=JTok.CHARGRAM, mesh_shape=mesh)
+                      ).run_bytes(jcorpus.Corpus(names=corpus.names,
+                                                 docs=corpus.docs))
 
 
 @pytest.mark.parametrize("pad_docs_to,pad_len_to", [(None, 128), (40, 16)])

@@ -622,8 +622,23 @@ def test_cli_gating_matches_jax(toy_corpus_dir, tmp_path, capsys, monkeypatch,
 
 @pytest.mark.parametrize("flags", [["--mesh", "2,1,1"],
                                    ["--ingest-workers", "2"]])
-def test_cli_multi_device_flags_name_a9(toy_corpus_dir, tmp_path, flags):
+def test_cli_multi_device_flags_name_a9(toy_corpus_dir, tmp_path, flags,
+                                        capsys):
+    # Ported now (ROADMAP A9a): a golden run over a 2-shard CPU mesh
+    # writes the JAX CLI's bytes (its mesh spans the 8 test devices; the
+    # golden bytes do not depend on the mesh), and --ingest-workers
+    # without --doc-len warns and runs single-process, as the JAX CLI
+    # does.
+    from tfidf_tpu.cli import main as jax_main
     from tfidf_tpu_torch.cli import main as port_main
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        port_main(["run", "--input", toy_corpus_dir, "--output",
-                   str(tmp_path / "o"), "--device", "cpu", *flags])
+    base = ["run", "--input", toy_corpus_dir, "--output"]
+    assert port_main(base + [str(tmp_path / "o"), "--device", "cpu",
+                             *flags]) == 0
+    port_err = capsys.readouterr().err
+    jax_flags = ["--mesh", "8,1,1"] if flags[0] == "--mesh" else flags
+    assert jax_main(base + [str(tmp_path / "j"), *jax_flags]) == 0
+    jax_err = capsys.readouterr().err
+    assert (tmp_path / "o").read_bytes() == (tmp_path / "j").read_bytes()
+    warn = [l for l in port_err.splitlines() if "ingest-workers" in l]
+    assert warn == [l for l in jax_err.splitlines() if "ingest-workers" in l]
+    assert (warn != []) == (flags[0] == "--ingest-workers")

@@ -82,7 +82,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  # the exact-terms slice: jax-free copies of the JAX
                  # package's re-rank and recall modules
                  "tfidf_tpu_torch/rerank.py",
-                 "tfidf_tpu_torch/recall.py"):
+                 "tfidf_tpu_torch/recall.py",
+                 # the parallel run paths, with the jax-free copy of the
+                 # JAX package's multi-process runtime
+                 "tfidf_tpu_torch/parallel/__init__.py",
+                 "tfidf_tpu_torch/parallel/mesh.py",
+                 "tfidf_tpu_torch/parallel/collectives.py",
+                 "tfidf_tpu_torch/parallel/longdoc.py",
+                 "tfidf_tpu_torch/parallel/sharded.py",
+                 "tfidf_tpu_torch/parallel/multihost.py"):
         assert path in rel
     offenders = []
     for path in files:
@@ -358,10 +366,27 @@ def test_exact_and_chargram_without_gpu_raise(no_gpu, toy_corpus_dir,
 
 class TestNotPortedYet:
     def test_mesh(self, toy_corpus_dir):
-        pipe = T.TfidfPipeline(T.PipelineConfig(mesh_shape={"docs": 2}),
-                               device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            pipe.run(T.discover_corpus(toy_corpus_dir))
+        # Ported now (ROADMAP A9a): a mesh_shape pipeline runs on two
+        # virtual CPU shards and equals the JAX package's 2-device
+        # ShardedPipeline (counts, DF, output bytes), whose scores it
+        # holds within 4 float32 ulp (tests/test_torch_parallel.py has
+        # every mesh and engine).
+        import jax
+
+        from tfidf_tpu.config import PipelineConfig as JConfig
+        from tfidf_tpu.io.corpus import discover_corpus
+        from tfidf_tpu.parallel import MeshPlan, ShardedPipeline
+        got = T.TfidfPipeline(T.PipelineConfig(mesh_shape={"docs": 2}),
+                              device="cpu").run(
+            T.discover_corpus(toy_corpus_dir))
+        want = ShardedPipeline(MeshPlan.create(docs=2,
+                                               devices=jax.devices()[:2]),
+                               JConfig()).run(discover_corpus(toy_corpus_dir))
+        np.testing.assert_array_equal(got.counts, np.asarray(want.counts))
+        np.testing.assert_array_equal(got.df, np.asarray(want.df))
+        np.testing.assert_allclose(got.scores, np.asarray(want.scores),
+                                   rtol=4 * 2 ** -23, atol=0)
+        assert got.output_bytes() == want.output_bytes()
 
     def test_device_chargram(self, toy_corpus_dir):
         # Ported now: a CHARGRAM hashed top-k config runs the device
@@ -400,12 +425,21 @@ class TestNotPortedYet:
         from tfidf_tpu_torch.streaming import StreamingTfidf
         cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
         for make in (StreamingTfidf, TfidfVectorizer):
-            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
                 make(cfg, plan=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
             cli.main(["stream", "--input", toy_corpus_dir, "--output",
                       str(tmp_path / "o.txt"), "--mesh-docs", "2",
                       "--device", "cpu"])
+
+    def test_search_mesh(self, toy_corpus_dir):
+        # The docs-sharded search side is ROADMAP A9b.
+        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+            T.TfidfRetriever(T.PipelineConfig(vocab_mode=VocabMode.HASHED),
+                             plan=object(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+            cli.main(["query", "--input", toy_corpus_dir, "--query", "a",
+                      "--mesh-docs", "2", "--device", "cpu"])
 
     @pytest.mark.parametrize("member", ["MetricsRegistry", "HealthMonitor",
                                         "DeviceMonitor", "SloTracker"])
@@ -426,7 +460,8 @@ class TestNotPortedYet:
     @pytest.mark.parametrize("flags,item", [
         (["--replicas", "2", "--snapshot-dir", "snap"], "ROADMAP A8b"),
         (["--replica-timeout-s", "5"], "ROADMAP A8b"),
-        (["--mesh-shards", "2"], "ROADMAP A9")])
+        pytest.param(["--mesh-shards", "2"], "ROADMAP A9b",
+                     id="flags2-ROADMAP A9")])
     def test_serve_cli_options(self, toy_corpus_dir, flags, item):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["serve", "--input", toy_corpus_dir, "--device", "cpu",
@@ -434,7 +469,8 @@ class TestNotPortedYet:
 
     @pytest.mark.parametrize("kw,item", [
         ({"replicas": 2, "snapshot_dir": "snap"}, "ROADMAP A8b"),
-        ({"mesh_shards": 2}, "ROADMAP A9")])
+        pytest.param({"mesh_shards": 2}, "ROADMAP A9b",
+                     id="kw1-ROADMAP A9")])
     def test_server_options(self, toy_corpus_dir, kw, item):
         from tfidf_tpu_torch.config import ServeConfig
         from tfidf_tpu_torch.serve import TfidfServer
@@ -443,28 +479,40 @@ class TestNotPortedYet:
         with pytest.raises(NotImplementedError, match=item):
             TfidfServer(r, ServeConfig(**kw))
 
-    @pytest.mark.parametrize("kw,item", [
-        ({"plan": object()}, "ROADMAP A9"),
-        ({"shard": (0, 1)}, "ROADMAP A9"),
-        ({"df_merge": lambda df: df}, "ROADMAP A9"),
-        ({"total_docs": 4}, "ROADMAP A9"),
-        # ported now: runs and equals the JAX package's ids-only ingest
-        pytest.param({"wire_vals": False}, None, id="kw4-ROADMAP A5"),
+    # Every option is ported now: each runs and equals the JAX
+    # package's ingest with the same option (the mesh plan: 2 shards on
+    # both sides), ids and DF exact, scores within 1 ulp of the wire.
+    @pytest.mark.parametrize("kw", [
+        pytest.param({"plan": 2}, id="kw0-ROADMAP A9"),
+        pytest.param({"shard": (0, 1)}, id="kw1-ROADMAP A9"),
+        pytest.param({"df_merge": lambda df: df}, id="kw2-ROADMAP A9"),
+        pytest.param({"total_docs": 4}, id="kw3-ROADMAP A9"),
+        pytest.param({"wire_vals": False}, id="kw4-ROADMAP A5"),
     ])
-    def test_run_overlapped_options(self, toy_corpus_dir, kw, item):
+    def test_run_overlapped_options(self, toy_corpus_dir, kw):
+        import jax
+
+        from tfidf_tpu.config import PipelineConfig as JConfig
+        from tfidf_tpu.config import VocabMode as JV
+        from tfidf_tpu.ingest import run_overlapped as jax_run
+        from tfidf_tpu.parallel import MeshPlan as JMesh
         from tfidf_tpu_torch.ingest import run_overlapped
+        from tfidf_tpu_torch.parallel import MeshPlan
         cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
-        if item is None:
-            from tfidf_tpu.config import PipelineConfig as JConfig
-            from tfidf_tpu.config import VocabMode as JV
-            from tfidf_tpu.ingest import run_overlapped as jax_run
-            got = run_overlapped(toy_corpus_dir, cfg, doc_len=16,
-                                 device="cpu", **kw)
-            want = jax_run(toy_corpus_dir, JConfig(vocab_mode=JV.HASHED,
-                                                   topk=3), doc_len=16, **kw)
+        port_kw, jax_kw = dict(kw), dict(kw)
+        if "plan" in kw:
+            port_kw["plan"] = MeshPlan.create(docs=2, device="cpu")
+            jax_kw["plan"] = JMesh.create(docs=2, devices=jax.devices()[:2])
+        got = run_overlapped(toy_corpus_dir, cfg, doc_len=16, device="cpu",
+                             **port_kw)
+        want = jax_run(toy_corpus_dir, JConfig(vocab_mode=JV.HASHED, topk=3),
+                       doc_len=16, **jax_kw)
+        np.testing.assert_array_equal(got.topk_ids, want.topk_ids)
+        np.testing.assert_array_equal(got.df, np.asarray(want.df))
+        np.testing.assert_array_equal(got.lengths, want.lengths)
+        assert got.path == want.path
+        if "wire_vals" in kw:
             assert got.topk_vals is None and want.topk_vals is None
-            np.testing.assert_array_equal(got.topk_ids, want.topk_ids)
-            np.testing.assert_array_equal(got.df, np.asarray(want.df))
-            return
-        with pytest.raises(NotImplementedError, match=item):
-            run_overlapped(toy_corpus_dir, cfg, device="cpu", **kw)
+        else:  # the packed wire: float16 scores
+            np.testing.assert_allclose(got.topk_vals, want.topk_vals,
+                                       rtol=2 ** -10, atol=0)

@@ -790,12 +790,12 @@ class TestCliQuery:
             assert all(abs(a - b) <= 1e-6 for (_, a), (_, b) in zip(ra, rb))
 
     def test_mesh_docs_names_a9(self, toy_corpus_dir):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
             tcli.main(["query", "--input", toy_corpus_dir, "--query", "a",
                        "--mesh-docs", "2", "--device", "cpu"])
 
     def test_plan_names_a9(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
             T.TfidfRetriever(_cfgs()[1], plan=object(), device="cpu")
 
     def test_exact_vocab_refused(self):

@@ -11,7 +11,7 @@ tfidf_tpu.cli serve``, in process with stdin monkeypatched, on the CPU.
 * ``--snapshot-dir`` restores a snapshot written by either package's
   server and serves the same answers.
 * Without ``--device`` and without a GPU the command raises "no CUDA
-  device available"; ``--mesh-shards`` raises naming ROADMAP A9 and
+  device available"; ``--mesh-shards`` raises naming ROADMAP A9b and
   ``--replicas`` / ``--replica-timeout-s`` ROADMAP A8b.
 """
 

@@ -302,11 +302,11 @@ def test_resume_equals_uninterrupted(tmp_path):
 def test_exact_vocab_rejected_and_plan_not_ported():
     with pytest.raises(ValueError, match="HASHED"):
         TStream(TConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
         TStream(_configs()[1], plan=object(), device="cpu")
     with pytest.raises(ValueError, match="HASHED"):
         TVectorizer(TConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
         TVectorizer(_configs()[1], plan=object(), device="cpu")
 
 
@@ -480,7 +480,7 @@ def test_cli_stream_options(stream_dir, tmp_path, monkeypatch, capsys):
     out = str(tmp_path / "t.txt")
     base = ["stream", "--input", stream_dir, "--output", out,
             "--vocab-size", "256"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
         tcli.main(base + ["--mesh-docs", "2", "--device", "cpu"])
     trace = str(tmp_path / "trace.json")
     assert tcli.main(base + ["--device", "cpu", "--timing",

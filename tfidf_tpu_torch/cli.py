@@ -24,9 +24,14 @@ truncated, terms print as ``id:N``), any other run through
 engine, else the hashed re-rank engine), else ``rerank.exact_topk`` over
 the batch run's margin selection. ``--backend mpi`` runs the native
 bit-reference (``native/tfidf_ref.cc``, built with g++ into
-``tfidf_tpu_torch/_build/`` at first use) instead. ``--mesh`` and
-``--ingest-workers`` raise naming ROADMAP A9. The gating messages and
-exit codes are the JAX CLI's.
+``tfidf_tpu_torch/_build/`` at first use) instead. ``--mesh d,s,v`` runs
+on a (docs, seq, vocab) device mesh (``parallel``): a ``--doc-len`` run
+with a docs-only mesh through the mesh ingest over the first d*s*v
+devices (``--device cpu``: that many CPU shards), any other through
+``config.mesh_shape``. ``--ingest-workers N`` (or
+``TFIDF_TPU_INGEST_WORKERS``) splits a single-device ``--doc-len`` run
+over N worker processes (``parallel.multihost.run_sharded_ingest``).
+The gating messages and exit codes are the JAX CLI's.
 
     python -m tfidf_tpu_torch.cli stream --input DIR [--output output.txt]
         [--batch-docs N] [--doc-len L] [--vocab-size V] [--topk K]
@@ -59,7 +64,7 @@ indexes the directory (or restores ``--snapshot-dir``) and serves it
 through ``serve.TfidfServer``: one JSON request per line on stdin (or on
 TCP with ``--port``), one JSON response line each, in completion order —
 the JAX CLI's ``serve`` protocol and ops (``--help`` lists them).
-``--mesh-shards`` raises naming ROADMAP A9, ``--replicas`` and
+``--mesh-shards`` raises naming ROADMAP A9b, ``--replicas`` and
 ``--replica-timeout-s`` ROADMAP A8b.
 
 Each runs on CUDA unless ``--device cpu`` is given, and fails when no GPU
@@ -181,11 +186,13 @@ def _build_parser() -> argparse.ArgumentParser:
                           "hashed engine: the device keeps margin*k "
                           "buckets (the device-exact engine uses k+8)")
     run.add_argument("--mesh", type=str, default=None,
-                     help="mesh shape docs,seq,vocab (not ported yet: "
-                          "ROADMAP A9)")
+                     help="mesh shape docs,seq,vocab, e.g. 4,1,1 (the "
+                          "first d*s*v devices; with --device cpu, that "
+                          "many CPU shards)")
     run.add_argument("--ingest-workers", type=int, default=None,
-                     help="multi-process sharded ingest (not ported yet: "
-                          "ROADMAP A9)")
+                     help="multi-process sharded ingest: split a "
+                          "single-device --doc-len run over N worker "
+                          "processes (env TFIDF_TPU_INGEST_WORKERS)")
     run.add_argument("--no-strict", action="store_true",
                      help="accept any filenames, not just doc<i>")
     run.add_argument("--inspect", action="store_true",
@@ -212,7 +219,7 @@ def _build_parser() -> argparse.ArgumentParser:
     st.add_argument("--topk", type=int, default=8)
     st.add_argument("--mesh-docs", type=int, default=None,
                     help="shard each minibatch over this many devices "
-                         "(not ported yet: ROADMAP A9)")
+                         "(not ported yet: ROADMAP A9b)")
     st.add_argument("--checkpoint", default=None,
                     help="checkpoint directory; state is saved after "
                          "every minibatch")
@@ -238,7 +245,7 @@ def _build_parser() -> argparse.ArgumentParser:
     q.add_argument("--vocab-size", type=int, default=1 << 16)
     q.add_argument("--mesh-docs", type=int, default=None,
                    help="shard the index over this many devices (not "
-                        "ported yet: ROADMAP A9)")
+                        "ported yet: ROADMAP A9b)")
     q.add_argument("--doc-len", type=int, default=None,
                    help="static tokens per document: index via the "
                         "overlapped ingest's chunk step (native loader; "
@@ -331,7 +338,7 @@ def _build_parser() -> argparse.ArgumentParser:
                          "snapshotted there")
     sv.add_argument("--mesh-shards", type=int, default=None,
                     help="serve one index doc-sharded over this many "
-                         "devices (not ported yet: ROADMAP A9)")
+                         "devices (not ported yet: ROADMAP A9b)")
     sv.add_argument("--query-slab", choices=["on", "off"], default=None,
                     help="query slab: pinned staging slots and one "
                          "non-blocking H2D copy a batch; 'off' allocates "
@@ -412,7 +419,7 @@ def _run_query(args) -> int:
     if args.mesh_docs is not None:
         raise NotImplementedError(
             "query --mesh-docs (the docs-sharded index) is not ported yet: "
-            "ROADMAP A9")
+            "ROADMAP A9b")
     cfg = PipelineConfig(vocab_mode=VocabMode.HASHED,
                          vocab_size=args.vocab_size)
     r = TfidfRetriever(cfg, device=args.device).index_dir(
@@ -638,7 +645,7 @@ def _run_serve(args) -> int:
     if args.mesh_shards is not None:
         raise NotImplementedError(
             "serve --mesh-shards (one index doc-sharded over several "
-            "devices) is not ported yet: ROADMAP A9")
+            "devices) is not ported yet: ROADMAP A9b")
     if args.replicas is not None or args.replica_timeout_s is not None:
         raise NotImplementedError(
             "serve --replicas/--replica-timeout-s (the replicated serving "
@@ -952,7 +959,7 @@ def _run_stream(args) -> int:
     if args.mesh_docs is not None:
         raise NotImplementedError(
             "stream --mesh-docs (the docs-sharded stream) is not ported "
-            "yet: ROADMAP A9")
+            "yet: ROADMAP A9b")
     cfg = PipelineConfig(vocab_mode=VocabMode.HASHED,
                          vocab_size=args.vocab_size, topk=args.topk,
                          max_doc_len=args.doc_len, doc_chunk=args.doc_len)
@@ -1043,11 +1050,15 @@ def _overlapped(args, cfg, exact_terms: bool) -> Optional[bool]:
         sys.stderr.write("error: --spill/--chunk-docs only apply to "
                          "--doc-len (overlapped ingest) runs\n")
         return None
+    # --mesh composes with --doc-len for docs-only meshes (the mesh
+    # ingest); seq/vocab meshes stay on the batch path.
+    mesh_ok = (cfg.mesh_shape.get("seq", 1) == 1
+               and cfg.mesh_shape.get("vocab", 1) == 1)
     overlapped = (args.doc_len is not None
                   and cfg.vocab_mode is VocabMode.HASHED
                   and cfg.topk is not None
                   and cfg.tokenizer is TokenizerKind.WHITESPACE
-                  and cfg.engine == "sparse")
+                  and mesh_ok and cfg.engine == "sparse")
     if args.finish == "scan" and overlapped \
             and (not use_packed_result_wire(cfg) or exact_terms):
         sys.stderr.write(
@@ -1056,7 +1067,7 @@ def _overlapped(args, cfg, exact_terms: bool) -> Optional[bool]:
             "and exact wires' fused finish program is already one "
             "dispatch)\n")
     if args.wire == "bytes" and (
-            not overlapped or exact_terms
+            not overlapped or exact_terms or cfg.mesh_shape
             or not use_bytes_wire(cfg, args.chunk_docs or 8192,
                                   args.doc_len or cfg.max_doc_len)):
         sys.stderr.write(
@@ -1097,6 +1108,18 @@ def _timing_report(timer, docs: int, seconds: float,
         sys.stderr.write(f"{'engine':>12}: {engine}\n")
 
 
+def _cli_plan(mesh_shape: dict, device):
+    """The mesh ingest's plan for ``--mesh``: docs = N takes the first N
+    devices (0 = all), so a sub-mesh runs on any host; None without a
+    mesh."""
+    if not mesh_shape:
+        return None
+    from tfidf_tpu_torch.parallel.mesh import MeshPlan, default_devices
+    n = mesh_shape.get("docs", 0)
+    devs = default_devices(device, n)
+    return MeshPlan.create(docs=n, devices=devs[:n] if n else devs)
+
+
 def _run(args) -> int:
     import contextlib
     import time
@@ -1109,20 +1132,16 @@ def _run(args) -> int:
     from tfidf_tpu_torch.pipeline import TfidfPipeline
     from tfidf_tpu_torch.utils.timing import PhaseTimer
 
+    mesh_shape = {}
     if args.mesh:
-        raise NotImplementedError(
-            "run --mesh (the JAX package's mesh pipeline and mesh ingest) "
-            "is not ported yet: ROADMAP A9")
+        docs, seq, vocab = (int(x) for x in args.mesh.split(","))
+        mesh_shape = {"docs": docs, "seq": seq, "vocab": vocab}
     workers = args.ingest_workers
     if workers is None:
         workers = int(os.environ.get("TFIDF_TPU_INGEST_WORKERS", "1") or 1)
     if workers < 1:
         sys.stderr.write("error: --ingest-workers must be >= 1\n")
         return 2
-    if workers > 1:
-        raise NotImplementedError(
-            "run --ingest-workers (multi-process sharded ingest) is not "
-            "ported yet: ROADMAP A9")
     lo, hi = (int(x) for x in args.ngram.split(","))
     exact_terms = args.exact_terms
     if exact_terms and (args.topk is None or args.vocab_mode != "hashed"
@@ -1137,9 +1156,10 @@ def _run(args) -> int:
         # the hashed exact-terms engine keeps a margin of candidates
         topk=(max(2, args.exact_margin) * args.topk if exact_terms
               else args.topk),
-        engine=args.engine, result_wire=args.result_wire,
-        score_dtype=args.score_dtype, wire=args.wire,
-        pack_threads=args.pack_threads, finish=args.finish or "scan")
+        engine=args.engine, mesh_shape=mesh_shape,
+        result_wire=args.result_wire, score_dtype=args.score_dtype,
+        wire=args.wire, pack_threads=args.pack_threads,
+        finish=args.finish or "scan")
     strict = not args.no_strict
     timer = PhaseTimer() if args.timing else None
 
@@ -1162,7 +1182,13 @@ def _run(args) -> int:
     overlapped = _overlapped(args, cfg, exact_terms)
     if overlapped is None:
         return 2
-    if overlapped and exact_terms:
+    if workers > 1 and (mesh_shape or exact_terms or not overlapped):
+        sys.stderr.write(
+            "warning: --ingest-workers needs a single-device hashed "
+            "--doc-len run (no --mesh, no --exact-terms); running "
+            "single-process\n")
+        workers = 1
+    if overlapped and exact_terms and not mesh_shape:
         from tfidf_tpu_torch.rerank import exact_terms_lines
         n_docs = (len(corpus) if corpus is not None
                   else len(discover_names(args.input, strict)))
@@ -1183,14 +1209,30 @@ def _run(args) -> int:
     t0 = time.perf_counter()
     if overlapped:
         from tfidf_tpu_torch.ingest import run_overlapped
+        # Exact-terms runs (here: on a mesh) read only candidate
+        # buckets, so they take the ids-only wire.
+        kw = dict(doc_len=args.doc_len, chunk_docs=args.chunk_docs or 8192,
+                  strict=strict, spill=args.spill or "auto")
         with obs.span("run_overlapped"):
-            r = run_overlapped(args.input, cfg, doc_len=args.doc_len,
-                               chunk_docs=args.chunk_docs or 8192,
-                               strict=strict, spill=args.spill or "auto",
-                               device=args.device)
+            if workers > 1:
+                from tfidf_tpu_torch.parallel.multihost import \
+                    run_sharded_ingest
+                r, info = run_sharded_ingest(args.input, cfg,
+                                             n_workers=workers,
+                                             device=args.device, **kw)
+                sys.stderr.write(
+                    f"sharded ingest: {info.n_workers} workers, upload "
+                    f"{info.upload_s:.3f}s (max over links), utilization "
+                    f"{info.link_utilization}\n")
+            else:
+                r = run_overlapped(args.input, cfg,
+                                   wire_vals=not exact_terms,
+                                   plan=_cli_plan(mesh_shape, args.device),
+                                   device=args.device, **kw)
         result = types.SimpleNamespace(
             num_docs=r.num_docs, names=r.names, topk_vals=r.topk_vals,
-            topk_ids=r.topk_ids, id_to_word={})
+            topk_ids=r.topk_ids, id_to_word={}, df=r.df,
+            df_occupied=r.df_occupied)
         if timer is not None:
             for name, secs in (r.phases or {}).items():
                 timer.add(name, secs)
@@ -1206,9 +1248,13 @@ def _run(args) -> int:
             write_output(args.output, result.output_lines())
         elif exact_terms:
             from tfidf_tpu_torch.rerank import exact_topk
+            occ = getattr(result, "df_occupied", None)
             reranked = exact_topk(args.input, result.names, result.topk_ids,
                                   result.num_docs, cfg, k=args.topk,
-                                  df=result.df)
+                                  df=None if occ is not None else result.df,
+                                  df_occupied=occ,
+                                  max_tokens=args.doc_len if overlapped
+                                  else None)
             lines = sorted(b"%s@%s\t%.16f" % (name.encode(), w, s)
                            for name in result.names if name
                            for w, s in reranked[name])

@@ -60,7 +60,8 @@ class PipelineConfig:
         ``doc_chunk`` multiple.
       engine: "dense" ([D, V] histograms) or "sparse" (row-sparse
         sort+RLE); None picks by vocab mode.
-      mesh_shape: must be empty (mesh runs are not ported yet).
+      mesh_shape: logical device mesh, e.g. ``{"docs": 8}`` or
+        ``{"docs": 4, "vocab": 2}``. Empty = single device.
       score_dtype: device score dtype; "float64" canonicalises to
         float32, as JAX does without x64.
       topk: per-document top-k selection; None = full output.
@@ -195,7 +196,7 @@ class ServeConfig:
       compact_at: sealed-segment count at which the compactor merges.
         ``--compact-at`` / ``TFIDF_TPU_COMPACT_AT``.
       mesh_shards: accepted and validated; serving with it set raises
-        ``NotImplementedError`` (the docs-sharded index is ROADMAP A9).
+        ``NotImplementedError`` (the docs-sharded index is ROADMAP A9b).
         ``--mesh-shards`` / ``TFIDF_TPU_MESH_SHARDS``.
       query_slab: the query slab (pinned host staging slots, one
         non-blocking H2D copy a batch); None resolves

@@ -1,6 +1,7 @@
-"""Overlapped corpus ingest on one device: host packing pipelined
-against device compute (port of ``tfidf_tpu/ingest.py``'s single-device
-``run_overlapped``).
+"""Overlapped corpus ingest: host packing pipelined against device
+compute (port of ``tfidf_tpu/ingest.py``'s ``run_overlapped``: one
+device, a docs-sharded mesh, or one worker of a multi-process sharded
+ingest).
 
 The corpus streams through in chunks. One packer thread reads, packs and
 (on the id wires) tokenizes and hashes chunk i+1 with the native loader
@@ -42,6 +43,13 @@ and the exact-ids wire ships each pick's (id, count) plus the [V] DF, so
 the host rescores in float64 without re-reading the corpus
 (``rerank.exact_topk_from_wire``). :func:`profile_resident` times the
 resident run's phases one at a time, each fenced.
+
+With a mesh ``plan`` the same two regimes run docs-sharded (``path
+"resident-mesh"`` or ``"streaming-mesh"``, the padded wire): every chunk
+splits into a block of rows per shard, each shard folds its own DF
+partial, one psum joins them, and each shard scores its own rows (see
+``_Run``). The ``shard``/``df_merge``/``total_docs`` hooks make a run one
+worker of ``parallel.multihost.run_sharded_ingest``.
 
 Differences from the JAX package: there is no jit, donation or
 ``lax.scan`` (PyTorch runs eagerly: the scan finish is a loop), the DF
@@ -324,23 +332,27 @@ class _HostCopy:
 
 
 class _Mark:
-    """A point in the device's work queue: :meth:`synchronize` returns
-    once the work issued before it has finished (no-op on the CPU)."""
+    """A point in the work queues of ``devices``: :meth:`synchronize`
+    returns once the work issued before it has finished on each (no-op
+    on the CPU)."""
 
-    def __init__(self, device: torch.device):
-        self._event = None
-        if device.type == "cuda":
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(device))
+    def __init__(self, *devices: torch.device):
+        self._events = []
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                self._events.append(event)
 
     def synchronize(self) -> None:
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(*devices: torch.device) -> None:
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 class _PackAhead:
@@ -602,7 +614,8 @@ def _u16_bytes(t: torch.Tensor) -> torch.Tensor:
 def _score_pack_wire(ids_parts, cnt_parts, head_parts, lens_parts, df,
                      num_docs: int, *, topk: int, score_dtype,
                      wide_ids: bool, include_vals: bool = True,
-                     include_counts: bool = False):
+                     include_counts: bool = False,
+                     keep_missing: bool = False):
     """The fused finish of the pair, ids-only and exact-ids result
     wires: score the concatenated triples against the IDF of ``df`` (the
     gather join) and pack the selection into ONE byte buffer. Returns
@@ -612,7 +625,8 @@ def _score_pack_wire(ids_parts, cnt_parts, head_parts, lens_parts, df,
       and the occupied-DF-bucket count as a 4-byte tail;
     * ids-only (``include_vals=False``): ids (a missing pick reads
       bucket 0, harmless to the re-rank, which scores candidates exactly
-      and drops words not in the doc), then the 4-byte tail;
+      and drops words not in the doc; -1 with ``keep_missing``, the
+      mesh's contract, on int32 ids), then the 4-byte tail;
     * exact-ids (``include_counts=True``, collision-free intern ids):
       ids, uint16 counts (0 marks a missing pick), then the full [V] DF
       as int32, everything the host needs to rescore in float64."""
@@ -621,7 +635,7 @@ def _score_pack_wire(ids_parts, cnt_parts, head_parts, lens_parts, df,
            torch.cat(lens_parts))
 
     def id_bytes(tids):
-        safe = tids.clamp_min(0)
+        safe = tids if keep_missing else tids.clamp_min(0)
         return _as_bytes(safe) if wide_ids else _u16_bytes(safe)
 
     if include_counts:
@@ -837,7 +851,7 @@ class IngestResult:
     names: List[str]
     num_docs: int
     df_occupied: Optional[int] = None  # DF buckets with df > 0
-    path: str = ""            # regime: "resident" | "streaming"
+    path: str = ""            # "resident" | "streaming", "-mesh" added
     # Host wall seconds per phase; overlapped phases do not sum to the
     # wall. Resident: pack (stall on the packer), pack_host (the packer's
     # own wall), put (upload + issue), score_b, fetch (stall), fetch_host.
@@ -857,7 +871,16 @@ class IngestResult:
 
 @dataclasses.dataclass
 class _Run:
-    """What both regimes share, resolved once per run."""
+    """What both regimes share, resolved once per run.
+
+    One run drives one or more shards. On one device there is one
+    shard: the whole chunk. Under a docs-only mesh ``plan`` every chunk
+    splits into a block of rows per docs shard, each block on its
+    shard's device, and this process packs only its own shards' rows
+    (the reference's per-rank document loop, ``TFIDF.c:130-138``). Each
+    shard folds its own DF partial; :meth:`merged_df` is the run's one
+    collective (the reference's Phase 2, ``TFIDF.c:215-220``). A mesh
+    takes the padded wire, as the JAX package's does."""
 
     input_dir: str
     cfg: PipelineConfig
@@ -869,15 +892,127 @@ class _Run:
     itemsize: int
     spill: str
     device: torch.device
-    pack_chunk: Callable
     wire_vals: bool = True
+    total_docs: Optional[int] = None  # global document count when sharded
+    df_merge: Optional[Callable] = None
+    plan: Optional[object] = None     # a docs-only parallel.mesh.MeshPlan
 
     @property
     def num_docs(self) -> int:
         return len(self.names)
 
-    def chunk_names(self, starts, chunk_docs: int):
-        return [self.names[s:s + chunk_docs] for s in starts]
+    @property
+    def num_docs_idf(self) -> int:
+        """The IDF's document count: global under a sharded run."""
+        return self.num_docs if self.total_docs is None else self.total_docs
+
+    @property
+    def devices(self) -> List[torch.device]:
+        """The device of each shard this process runs."""
+        if self.plan is None:
+            return [self.device]
+        return [self.plan.device(d) for d in range(self.plan.n_local_docs)]
+
+    @property
+    def budget_scale(self) -> int:
+        """The cards that hold the run's shards: the resident budget and
+        the triple cache are per card."""
+        return 1 if self.plan is None else self.plan.n_cards
+
+    def path_name(self, regime: str) -> str:
+        return regime if self.plan is None else f"{regime}-mesh"
+
+    def chunks(self, chunk_docs: int) -> Tuple[int, List[int]]:
+        """(chunk size, chunk starts); a mesh rounds the chunk up to a
+        docs-shard multiple so that its rows shard evenly."""
+        if self.plan is not None:
+            chunk_docs += -chunk_docs % self.plan.n_docs_shards
+        _check_chunk_fits_int32(chunk_docs, self.length)
+        return chunk_docs, list(range(0, self.num_docs, chunk_docs))
+
+    def rows(self, chunk_docs: int) -> int:
+        """This process's rows of one chunk."""
+        if self.plan is None:
+            return chunk_docs
+        return self.plan.n_local_docs * (chunk_docs
+                                         // self.plan.n_docs_shards)
+
+    def wires(self, chunk_docs: int) -> Tuple[bool, bool]:
+        """(bytes wire, ragged wire) at this chunk size; a mesh takes the
+        padded wire."""
+        if self.plan is not None:
+            return False, False
+        bwire = use_bytes_wire(self.cfg, chunk_docs, self.length)
+        return bwire, (not bwire) and use_ragged_wire(self.cfg, chunk_docs,
+                                                      self.length)
+
+    def packer(self, chunk_docs: int, bwire: bool, ragged: bool,
+               stats: Dict[str, float]) -> Callable:
+        """names -> (wire array, lengths) of one chunk's rows in this
+        process, padded to :meth:`rows` documents."""
+        cfg, length = self.cfg, self.length
+        if bwire:
+            pack = make_bytes_packer(self.input_dir, cfg, chunk_docs, length,
+                                     stats=stats)
+        elif ragged:
+            pack = make_flat_packer(self.input_dir, cfg, chunk_docs, length)
+        else:
+            rows = self.rows(chunk_docs)
+            padded = make_chunk_packer(self.input_dir, cfg, rows, length)
+
+            def pack(chunk_names: List[str]):
+                if not chunk_names:  # a process past the corpus's last doc
+                    return (np.zeros((rows, length), np.int32),
+                            np.zeros((rows,), np.int32))
+                return padded(chunk_names)
+        return lambda chunk_names: tuple(pack(chunk_names)[:2])
+
+    def chunk_names(self, starts, chunk_docs: int) -> List[List[str]]:
+        """The names this process packs of each chunk."""
+        if self.plan is None:
+            return [self.names[s:s + chunk_docs] for s in starts]
+        lo = self.plan.first_docs_shard * (chunk_docs
+                                           // self.plan.n_docs_shards)
+        rows = self.rows(chunk_docs)
+        return [self.names[s + lo:min(s + lo + rows, s + chunk_docs)]
+                for s in starts]
+
+    def blocks(self, wire_arr: np.ndarray, lengths: np.ndarray):
+        """One packed chunk -> (wire, lengths) of each shard, on its
+        device: the whole chunk on one device, else a block of rows."""
+        devs = self.devices
+        if len(devs) == 1:
+            lens = _upload(lengths, devs[0])
+            return [(_upload(wire_arr, devs[0]), lens)]
+        n = len(lengths) // len(devs)
+        return [(_upload(wire_arr[i * n:(i + 1) * n], dev),
+                 _upload(lengths[i * n:(i + 1) * n], dev))
+                for i, dev in enumerate(devs)]
+
+    def merged_df(self, df_parts: List[torch.Tensor]) -> torch.Tensor:
+        """The DF the IDF uses, the one DF -> IDF boundary of both
+        regimes: the shards' partials summed (a mesh's psum, across
+        processes too), then ``df_merge`` of its host int32 copy (the
+        cross-worker sum of a sharded ingest), back on the device."""
+        df = df_parts[0] if self.plan is None else self.plan.psum(df_parts)
+        if self.df_merge is None:
+            return df
+        merged = self.df_merge(df.cpu().numpy().astype(np.int32))
+        return torch.from_numpy(np.ascontiguousarray(
+            merged, dtype=np.int32)).to(df.device)
+
+    def gather(self, local: np.ndarray, n_chunks: int) -> np.ndarray:
+        """This process's rows (chunk-major, each chunk its shards' rows
+        in shard order) -> the corpus's first ``num_docs`` rows in
+        document order. Across processes every process's rows of each
+        chunk are gathered in rank order (one gloo gather of bytes)."""
+        if self.plan is not None and self.plan.world > 1:
+            tail = local.shape[1:]
+            raw = torch.from_numpy(np.ascontiguousarray(local).reshape(
+                n_chunks, -1).view(np.uint8))
+            got = self.plan.all_gather([raw], dim=1, across_processes=True)
+            local = got.numpy().view(local.dtype).reshape(-1, *tail)
+        return local[:self.num_docs]
 
     def wire_name(self, bwire: bool, ragged: bool) -> str:
         return "bytes" if bwire else ("ragged" if ragged else "padded")
@@ -887,6 +1022,22 @@ class _Run:
         return dict(length=self.length, vocab_size=cfg.vocab_size,
                     seed=cfg.hash_seed, truncate_at=cfg.truncate_tokens_at,
                     align=align)
+
+
+def _shard_rows(parts: List[np.ndarray], owners: List[int], n_shards: int,
+                n_chunks: int) -> np.ndarray:
+    """Result parts, each one shard's rows of one or more chunks in chunk
+    order (``owners`` names the shard of each) -> this process's rows,
+    chunk-major, each chunk its shards' rows in shard order."""
+    per = []
+    for d in range(n_shards):
+        mine = [p for p, o in zip(parts, owners) if o == d]
+        per.append(mine[0] if len(mine) == 1 else np.concatenate(mine))
+    if n_shards == 1:
+        return per[0]
+    tail = per[0].shape[1:]
+    return np.stack([p.reshape(n_chunks, -1, *tail) for p in per],
+                    axis=1).reshape(-1, *tail)
 
 
 def run_overlapped(input_dir: str, config: Optional[PipelineConfig] = None,
@@ -907,38 +1058,66 @@ def run_overlapped(input_dir: str, config: Optional[PipelineConfig] = None,
     ``wire_vals=False`` drops scores from the resident run's result
     wire (the hashed exact-terms engine reads only candidate buckets):
     ``topk_vals`` is None and a missing pick reads bucket 0 in
-    ``topk_ids``. The streaming regime treats it as advisory and returns
-    full scores with -1 for a missing pick, as the JAX package does.
+    ``topk_ids`` (-1 under a mesh, as in the JAX package). The streaming
+    regime treats it as advisory and returns full scores with -1 for a
+    missing pick, as the JAX package does.
 
     ``device``: CUDA unless the caller names another device; raises
     "no CUDA device available" without a GPU and no device named.
     ``device="cpu"`` runs every kernel's plain version.
 
-    Not ported yet (raise NotImplementedError): ``plan`` (mesh ingest)
-    and the multi-process hooks ``shard``/``df_merge``/``total_docs``
-    (ROADMAP A9).
+    ``plan`` (a ``parallel.mesh.MeshPlan``, docs axis only; its devices
+    replace ``device``) runs the ingest docs-sharded over the mesh: each
+    shard sorts its own rows and folds its own DF partial, and one psum
+    is the run's only collective. The resident budget and the triple
+    cache scale with the cards that hold the shards (not with virtual
+    shards); the paths read ``"resident-mesh"`` and
+    ``"streaming-mesh"``. The mesh wire is the padded batch,
+    ``chunk_docs`` rounded up to a shard multiple.
+
+    ``shard``/``df_merge``/``total_docs`` are the multi-process ingest
+    hooks (``parallel.multihost.run_sharded_ingest``): ``shard=(lo,
+    hi)`` ingests that contiguous slice of the discovery order,
+    ``df_merge`` (host int32 [V] DF -> merged DF, e.g.
+    ``MpiLiteComm.allreduce_sum``) replaces the local DF at the DF -> IDF
+    boundary, and ``total_docs`` is the global document count of the
+    IDF. A shard's rows then equal the same rows of a single-process
+    run bit for bit. Combined with ``plan`` they raise ``ValueError``:
+    a mesh shards across the devices of one process.
     """
     cfg = config or PipelineConfig(vocab_mode=VocabMode.HASHED, topk=16)
     if cfg.vocab_mode is not VocabMode.HASHED:
         raise ValueError("overlapped ingest requires VocabMode.HASHED")
     if cfg.topk is None:
         raise ValueError("overlapped ingest requires a topk selection")
-    if plan is not None:
-        raise NotImplementedError(
-            "run_overlapped(plan=...) (mesh ingest) is not ported yet: "
-            "ROADMAP A9")
-    if shard is not None or df_merge is not None or total_docs is not None:
-        raise NotImplementedError(
-            "run_overlapped's multi-process hooks (shard, df_merge, "
-            "total_docs) are not ported yet: ROADMAP A9")
     if spill not in ("auto", "host", "reread"):
         raise ValueError(f"unknown spill policy {spill!r}")
-    dev = resolve_device(device)
     length = doc_len or cfg.max_doc_len
+    if plan is not None:
+        if shard is not None or df_merge is not None \
+                or total_docs is not None:
+            raise ValueError("shard/df_merge/total_docs are the "
+                             "multi-PROCESS ingest hooks; a mesh plan "
+                             "shards across devices of one process — "
+                             "compose by giving each worker its own plan")
+        if plan.n_seq_shards != 1 or plan.n_vocab_shards != 1:
+            raise ValueError("mesh ingest shards the docs axis only; build "
+                             "the MeshPlan with seq=1, vocab=1 "
+                             "(sparse-engine doctrine)")
+        dev = plan.device(0)
+    else:
+        dev = resolve_device(device)
     names = discover_names(input_dir, strict)
+    if shard is not None:
+        lo, hi = shard
+        if not (0 <= lo <= hi <= len(names)):
+            raise ValueError(f"shard {shard} outside corpus "
+                             f"[0, {len(names)}]")
+        names = names[lo:hi]
     num_docs = len(names)
     if num_docs == 0:
-        raise ValueError(f"no documents in {input_dir}")
+        raise ValueError(f"no documents in {input_dir}"
+                         + (f" shard {shard}" if shard else ""))
 
     use_native = (cfg.tokenizer is TokenizerKind.WHITESPACE
                   and fast_tokenizer.loader_available())
@@ -950,203 +1129,195 @@ def run_overlapped(input_dir: str, config: Optional[PipelineConfig] = None,
                                     _DEFAULT_SPILL_BYTES))
         spill = "host" if num_docs * length * itemsize <= budget \
             else "reread"
-    _check_chunk_fits_int32(chunk_docs, length)
     run = _Run(input_dir=input_dir, cfg=cfg, names=names, length=length,
                chunk_docs=chunk_docs, k=min(cfg.topk, length),
                score_dtype=canonical_score_dtype(cfg.score_dtype),
                itemsize=itemsize, spill=spill, device=dev,
-               pack_chunk=make_chunk_packer(input_dir, cfg, chunk_docs,
-                                            length),
-               wire_vals=wire_vals)
+               wire_vals=wire_vals, total_docs=total_docs,
+               df_merge=df_merge, plan=plan)
+    _check_chunk_fits_int32(chunk_docs, length)
     resident = int(os.environ.get("TFIDF_TPU_RESIDENT_ELEMS",
                                   _RESIDENT_ELEMS))
-    if num_docs * length <= resident:
+    if num_docs * length <= resident * run.budget_scale:
         return _run_resident(run)
     return _run_streaming(run)
 
 
 def _run_resident(run: _Run) -> IngestResult:
     """The resident regime: every chunk's triples stay on the device."""
-    cfg, dev, length, k = run.cfg, run.device, run.length, run.k
+    cfg, length, k = run.cfg, run.length, run.k
+    devs = run.devices
     num_docs = run.num_docs
-    chunk_docs, starts = _resident_chunking(num_docs, run.chunk_docs)
-    pack_chunk = (run.pack_chunk if chunk_docs == run.chunk_docs else
-                  make_chunk_packer(run.input_dir, cfg, chunk_docs, length))
-    _check_chunk_fits_int32(chunk_docs, length)
-    _check_total_slots_fit_int32(len(starts) * chunk_docs, length)
-    bwire = use_bytes_wire(cfg, chunk_docs, length)
-    ragged = (not bwire) and use_ragged_wire(cfg, chunk_docs, length)
+    chunk_docs, starts = run.chunks(
+        _resident_chunking(num_docs, run.chunk_docs)[0])
+    n_chunks = len(starts)
+    _check_total_slots_fit_int32(n_chunks * run.rows(chunk_docs) // len(devs),
+                                 length)
+    bwire, ragged = run.wires(chunk_docs)
     pack_stats: Dict[str, float] = {}
-    if bwire:
-        chunk_pack = make_bytes_packer(run.input_dir, cfg, chunk_docs,
-                                       length, stats=pack_stats)
-    elif ragged:
-        chunk_pack = make_flat_packer(run.input_dir, cfg, chunk_docs, length)
-    else:
-        chunk_pack = pack_chunk
+    chunk_pack = run.packer(chunk_docs, bwire, ragged, pack_stats)
     align = _wire_align()
 
     ph = {"pack": 0.0, "put": 0.0}
-    padded_chunk_bytes = chunk_docs * length * run.itemsize
+    padded_chunk_bytes = run.rows(chunk_docs) * length * run.itemsize
     bytes_wire = bytes_padded = 0
-    df_acc = torch.zeros(cfg.vocab_size, dtype=torch.int32, device=dev)
-    trips: List[Tuple[torch.Tensor, ...]] = []
+    df_parts = [torch.zeros(cfg.vocab_size, dtype=torch.int32, device=d)
+                for d in devs]
+    trips: List[List[Tuple[torch.Tensor, ...]]] = [[] for _ in devs]
     all_lengths: List = []
     # Chunk i+1 packs on the worker while chunk i uploads and its device
     # work is issued here.
     with _PackAhead(chunk_pack, run.chunk_names(starts, chunk_docs)) \
             as packer:
-        for ci, start in enumerate(starts):
-            n_chunk = len(run.names[start:start + chunk_docs])
+        for ci in range(n_chunks):
             t0 = time.perf_counter()
-            packed = packer.get(ci)
+            wire_arr, lengths = packer.get(ci)
             ph["pack"] += time.perf_counter() - t0
-            wire_arr, lengths = packed[0], packed[1]
             if not bwire:
-                all_lengths.append(lengths[:n_chunk])
+                all_lengths.append(lengths)
             bytes_wire += wire_arr.nbytes + lengths.nbytes
             bytes_padded += padded_chunk_bytes + lengths.nbytes
             t0 = time.perf_counter()
-            lens = _upload(lengths, dev)
             _trace("upload", ci)
-            wire = _upload(wire_arr, dev)
-            if bwire:
-                # lengths here are BYTE lengths; the device derives the
-                # token lengths, whose copy to the host starts now.
-                i_, c_, h_, df_acc, lens = _chunk_bytes(
-                    wire, lens, df_acc, **run.tokenize_kw(align))
-                all_lengths.append(_HostCopy(lens))
-            else:
-                i_, c_, h_, df_acc = _chunk_step(wire, lens, df_acc, cfg,
-                                                 length, ragged)
+            for d, (wire, lens) in enumerate(run.blocks(wire_arr, lengths)):
+                if bwire:
+                    # lengths here are BYTE lengths; the device derives
+                    # the token lengths, whose copy to the host starts now.
+                    i_, c_, h_, df_parts[d], lens = _chunk_bytes(
+                        wire, lens, df_parts[d], **run.tokenize_kw(align))
+                    all_lengths.append(_HostCopy(lens))
+                else:
+                    i_, c_, h_, df_parts[d] = _chunk_step(
+                        wire, lens, df_parts[d], cfg, length, ragged)
+                trips[d].append((i_, c_, h_, lens))
             _trace("dispatch", ci)
-            trips.append((i_, c_, h_, lens))
             ph["put"] += time.perf_counter() - t0
     ph["pack_host"] = packer.host_seconds
     if bwire:
-        all_lengths = [hc.result()[:len(run.names[s:s + chunk_docs])]
-                       for hc, s in zip(all_lengths, starts)]
+        all_lengths = [hc.result() for hc in all_lengths]
         for key, secs in pack_stats.items():
             ph[f"{key}_host"] = secs
-    d_padded = len(starts) * chunk_docs
-    common = dict(lengths=np.concatenate(all_lengths), names=run.names,
-                  num_docs=num_docs, path="resident",
+    common = dict(lengths=run.gather(np.concatenate(all_lengths), n_chunks),
+                  names=run.names, num_docs=num_docs,
+                  path=run.path_name("resident"),
                   wire=run.wire_name(bwire, ragged),
                   bytes_on_wire=bytes_wire, bytes_on_wire_padded=bytes_padded,
-                  bytes_off_wire_pair=d_padded * k
+                  bytes_off_wire_pair=n_chunks * chunk_docs * k
                   * pair_slot_bytes(run.score_dtype))
-    trip_i, trip_c, trip_h, len_parts = (list(p) for p in zip(*trips))
+    shard_trips = [[list(p) for p in zip(*t)] for t in trips]
 
+    t0 = time.perf_counter()
+    df_acc = run.merged_df(df_parts)
     if run.wire_vals and use_packed_result_wire(cfg):
         scan_finish = use_scan_finish(cfg, True)
-        t0 = time.perf_counter()
-        idf = _final_idf(df_acc, num_docs, score_dtype=run.score_dtype)
+        idf = _final_idf(df_acc, run.num_docs_idf,
+                         score_dtype=run.score_dtype)
         df_copy = _HostCopy(df_acc)  # rides behind the scoring
         bytes_off = 0
+        owners: List[int] = []
         with _DrainAhead(functools.partial(
                 _unpack_words_rows, score_dtype=run.score_dtype)) as drain:
-            if scan_finish:
-                words = _phase_b_scan_packed(trip_i, trip_c, trip_h,
-                                             len_parts, idf, topk=k)
-                bytes_off += words.nbytes
-                drain.put(0, words)
-            else:
-                for ci in range(len(starts)):
-                    words = _phase_b_cached_packed(
-                        trip_i[ci], trip_c[ci], trip_h[ci], len_parts[ci],
-                        idf, topk=k)
+            for d, dev in enumerate(devs):
+                idf_d = idf.to(dev)
+                if scan_finish:
+                    outs = [_phase_b_scan_packed(*shard_trips[d], idf_d,
+                                                 topk=k)]
+                else:
+                    outs = (_phase_b_cached_packed(*t, idf_d, topk=k)
+                            for t in trips[d])
+                for words in outs:
                     bytes_off += words.nbytes
-                    drain.put(ci, words)
+                    drain.put(len(owners), words)
+                    owners.append(d)
             ph["score_b"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             _trace("fetch_start")
-            parts = drain.results()  # chunk-major by construction
+            parts = drain.results()  # in issue order
             _trace("fetch_done")
         df_host = df_copy.result()
         ph["fetch"] = time.perf_counter() - t0
         ph["fetch_host"] = drain.host_seconds
-        vals = np.concatenate([p[0] for p in parts])
-        tids = np.concatenate([p[1] for p in parts])
-        return IngestResult(df=df_host, topk_vals=vals[:num_docs],
-                            topk_ids=tids[:num_docs],
+        vals, tids = (run.gather(_shard_rows([p[j] for p in parts], owners,
+                                             len(devs), n_chunks), n_chunks)
+                      for j in (0, 1))
+        return IngestResult(df=df_host, topk_vals=vals, topk_ids=tids,
                             df_occupied=int((df_host > 0).sum()),
                             phases=ph, result_wire="packed",
                             bytes_off_wire=bytes_off,
                             finish="scan" if scan_finish else "chunked",
-                            n_finish_dispatches=(1 if scan_finish
-                                                 else len(starts)),
-                            **common)
+                            n_finish_dispatches=len(owners), **common)
 
-    t0 = time.perf_counter()
-    wide = cfg.vocab_size > (1 << 16)
-    df_dev, wire = _score_pack_wire(trip_i, trip_c, trip_h, len_parts, df_acc,
-                                    num_docs, topk=k,
-                                    score_dtype=run.score_dtype,
-                                    wide_ids=wide,
-                                    include_vals=run.wire_vals)
+    # The fused finish: one byte wire per shard. Under a mesh the
+    # ids-only wire keeps -1 in a missing pick, as int32 ids.
+    keep_missing = run.plan is not None and not run.wire_vals
+    wide = cfg.vocab_size > (1 << 16) or keep_missing
+    rows = n_chunks * run.rows(chunk_docs) // len(devs)  # a shard's
+    vals_parts, tid_parts, bytes_off = [], [], 0
     _trace("fetch_start")
-    buf = wire.cpu().numpy()
-    df_host = df_dev.cpu().numpy()
+    for d, dev in enumerate(devs):
+        _, wire = _score_pack_wire(*shard_trips[d], df_acc.to(dev),
+                                   run.num_docs_idf, topk=k,
+                                   score_dtype=run.score_dtype,
+                                   wide_ids=wide,
+                                   include_vals=run.wire_vals,
+                                   keep_missing=keep_missing)
+        buf = wire.cpu().numpy()
+        bytes_off += buf.nbytes
+        vals, tids, occ = _decode_wire(buf, rows, k, wide, run.score_dtype,
+                                       include_vals=run.wire_vals)
+        vals_parts.append(vals)
+        tid_parts.append(tids)
+    df_host = df_acc.cpu().numpy()
     _trace("fetch_done")
     ph["fetch"] = time.perf_counter() - t0
-    vals, tids, occ = _decode_wire(buf, d_padded, k, wide, run.score_dtype,
-                                   include_vals=run.wire_vals)
-    return IngestResult(df=df_host,
-                        topk_vals=vals[:num_docs] if vals is not None
-                        else None,
-                        topk_ids=tids[:num_docs], df_occupied=occ,
-                        phases=ph, result_wire="pair",
-                        bytes_off_wire=buf.nbytes, finish="fused",
-                        n_finish_dispatches=1, **common)
+    owners = list(range(len(devs)))
+    vals = (run.gather(_shard_rows(vals_parts, owners, len(devs), n_chunks),
+                       n_chunks) if run.wire_vals else None)
+    tids = run.gather(_shard_rows(tid_parts, owners, len(devs), n_chunks),
+                      n_chunks)
+    return IngestResult(df=df_host, topk_vals=vals, topk_ids=tids,
+                        df_occupied=occ, phases=ph, result_wire="pair",
+                        bytes_off_wire=bytes_off, finish="fused",
+                        n_finish_dispatches=len(devs), **common)
 
 
 def _run_streaming(run: _Run) -> IngestResult:
     """The streaming regime: pass A folds DF (keeping a byte-budgeted
     prefix of triples), pass B scores every chunk against the final IDF."""
-    cfg, dev, length, k = run.cfg, run.device, run.length, run.k
-    chunk_docs, num_docs, names = run.chunk_docs, run.num_docs, run.names
+    cfg, length, k = run.cfg, run.length, run.k
+    devs = run.devices
+    num_docs = run.num_docs
     spill = run.spill
-    starts = list(range(0, num_docs, chunk_docs))
+    chunk_docs, starts = run.chunks(run.chunk_docs)
+    n_chunks = len(starts)
     # In-flight bound: the dispatch loops run at most max_ahead chunks
     # ahead of the device, which bounds device memory.
     chunk_bytes = max(chunk_docs * length * run.itemsize, 1)
     max_ahead = max(_LOOKAHEAD,
                     int(os.environ.get("TFIDF_TPU_INFLIGHT_BYTES", 1 << 29))
                     // chunk_bytes)
-    bwire = use_bytes_wire(cfg, chunk_docs, length)
-    ragged = (not bwire) and use_ragged_wire(cfg, chunk_docs, length)
+    bwire, ragged = run.wires(chunk_docs)
     pack_stats: Dict[str, float] = {}
-    bytes_pack = (make_bytes_packer(run.input_dir, cfg, chunk_docs, length,
-                                    stats=pack_stats) if bwire else None)
-    flat_pack = (make_flat_packer(run.input_dir, cfg, chunk_docs, length)
-                 if ragged else None)
+    pack_any = run.packer(chunk_docs, bwire, ragged, pack_stats)
     align = _wire_align()
     tok_kw = run.tokenize_kw(align)
     packed_wire = use_packed_result_wire(cfg)
     ph = {"pack_a": 0.0, "pack_b": 0.0}
-    padded_chunk_bytes = chunk_docs * length * run.itemsize
+    padded_chunk_bytes = run.rows(chunk_docs) * length * run.itemsize
     bytes_wire = bytes_padded = 0
-    df_acc = torch.zeros(cfg.vocab_size, dtype=torch.int32, device=dev)
+    df_parts = [torch.zeros(cfg.vocab_size, dtype=torch.int32, device=d)
+                for d in devs]
     cached: List[Optional[Tuple[np.ndarray, np.ndarray]]] = []
     all_lengths: List = []
     in_flight: List[_Mark] = []
-    cache_budget = int(os.environ.get("TFIDF_TPU_TRIPLE_CACHE_BYTES",
-                                      _TRIPLE_CACHE_BYTES))
-    trip_cache: Dict[int, Tuple[torch.Tensor, ...]] = {}
+    cache_budget = run.budget_scale * int(os.environ.get(
+        "TFIDF_TPU_TRIPLE_CACHE_BYTES", _TRIPLE_CACHE_BYTES))
+    trip_cache: Dict[int, List[Tuple[torch.Tensor, ...]]] = {}
     cache_bytes = 0
     chunk_cache_bytes = chunk_docs * length * 9 + chunk_docs * 4
 
-    def pack_any(chunk_names):
-        if bytes_pack is not None:
-            slab, blens, _ = bytes_pack(chunk_names)
-            return slab, blens
-        if flat_pack is not None:
-            flat, lengths, _ = flat_pack(chunk_names)
-            return flat, lengths
-        return run.pack_chunk(chunk_names)
-
     def phase_a_any(wire, lens, df_acc):
-        if flat_pack is not None:
+        if ragged:
             return _phase_a_ragged(wire, lens, df_acc, length=length,
                                    vocab_size=cfg.vocab_size, align=align)
         return _phase_a(wire, lens, df_acc, vocab_size=cfg.vocab_size)
@@ -1155,7 +1326,7 @@ def _run_streaming(run: _Run) -> IngestResult:
         if bwire:
             return _phase_b_bytes(wire, lens, idf, topk=k,
                                   packed=packed_wire, **tok_kw)
-        if flat_pack is not None:
+        if ragged:
             fn = _phase_b_ragged_packed if packed_wire else _phase_b_ragged
             return fn(wire, lens, idf, length=length, topk=k, align=align)
         fn = _phase_b_padded_packed if packed_wire else _phase_b
@@ -1163,94 +1334,99 @@ def _run_streaming(run: _Run) -> IngestResult:
 
     t_pass = time.perf_counter()
     with _PackAhead(pack_any, run.chunk_names(starts, chunk_docs)) as packer:
-        for ci, start in enumerate(starts):
-            n_chunk = len(names[start:start + chunk_docs])
+        for ci in range(n_chunks):
             t0 = time.perf_counter()
             wire_arr, lengths = packer.get(ci)
             ph["pack_a"] += time.perf_counter() - t0  # stall only
             if not bwire:
-                all_lengths.append(lengths[:n_chunk])
+                all_lengths.append(lengths)
             bytes_wire += wire_arr.nbytes + lengths.nbytes
             bytes_padded += padded_chunk_bytes + lengths.nbytes
             _trace("upload", ci)
+            blocks = run.blocks(wire_arr, lengths)
             if cache_bytes + chunk_cache_bytes <= cache_budget:
                 # Sort once and keep the triples: pass B scores them
                 # directly, with no re-pack, re-upload or re-sort.
-                lens_dev = _upload(lengths, dev)
-                if bwire:
-                    i_, c_, h_, df_acc, lens_dev = _chunk_bytes(
-                        _upload(wire_arr, dev), lens_dev, df_acc, **tok_kw)
-                    all_lengths.append(_HostCopy(lens_dev))
-                else:
-                    i_, c_, h_, df_acc = _chunk_step(
-                        _upload(wire_arr, dev), lens_dev, df_acc, cfg,
-                        length, ragged)
-                trip_cache[ci] = (i_, c_, h_, lens_dev)
+                trip_cache[ci] = []
+                for d, (wire, lens_dev) in enumerate(blocks):
+                    if bwire:
+                        i_, c_, h_, df_parts[d], lens_dev = _chunk_bytes(
+                            wire, lens_dev, df_parts[d], **tok_kw)
+                        all_lengths.append(_HostCopy(lens_dev))
+                    else:
+                        i_, c_, h_, df_parts[d] = _chunk_step(
+                            wire, lens_dev, df_parts[d], cfg, length, ragged)
+                    trip_cache[ci].append((i_, c_, h_, lens_dev))
                 cache_bytes += chunk_cache_bytes
                 if spill == "host":
                     cached.append(None)  # pass B skips the host copy
             else:
                 if spill == "host":
                     cached.append((wire_arr, lengths))
-                if bwire:
-                    df_acc, lens_dev = _phase_a_bytes(
-                        _upload(wire_arr, dev), _upload(lengths, dev),
-                        df_acc, **tok_kw)
-                    all_lengths.append(_HostCopy(lens_dev))
-                else:
-                    df_acc = phase_a_any(_upload(wire_arr, dev),
-                                         _upload(lengths, dev), df_acc)
+                for d, (wire, lens_dev) in enumerate(blocks):
+                    if bwire:
+                        df_parts[d], lens_dev = _phase_a_bytes(
+                            wire, lens_dev, df_parts[d], **tok_kw)
+                        all_lengths.append(_HostCopy(lens_dev))
+                    else:
+                        df_parts[d] = phase_a_any(wire, lens_dev,
+                                                  df_parts[d])
             _trace("dispatch", ci)
-            in_flight.append(_Mark(dev))
+            in_flight.append(_Mark(*devs))
             if len(in_flight) > max_ahead:
                 in_flight.pop(0).synchronize()
     ph["pack_host"] = packer.host_seconds
-    _sync(dev)
+    _sync(*devs)
     ph["pass_a"] = time.perf_counter() - t_pass
     ph["triple_cached_chunks"] = float(len(trip_cache))
 
-    idf = _final_idf(df_acc, num_docs, score_dtype=run.score_dtype)
+    df_acc = run.merged_df(df_parts)
+    idf = _final_idf(df_acc, run.num_docs_idf, score_dtype=run.score_dtype)
+    idfs = [idf.to(d) for d in devs]
     df_copy = _HostCopy(df_acc) if packed_wire else None
     # The scan finish scores the triple-cached chunks (a chunk-major
-    # prefix: the cache budget only ever closes) into one buffer; the
-    # chunks past the cache keep their per-chunk re-upload steps.
+    # prefix: the cache budget only ever closes) into one buffer per
+    # shard; the chunks past the cache keep their per-chunk steps.
     scan_finish = use_scan_finish(cfg, packed_wire)
     n_scanned = len(trip_cache) if scan_finish else 0
-    n_dispatches = 0
-    vals_parts: List[torch.Tensor] = []
-    ids_parts: List[torch.Tensor] = []
+    outs: List = []      # words, or (vals, ids), in issue order
+    owners: List[int] = []
     marks: List[_Mark] = []
     bytes_off = 0
     t_pass = time.perf_counter()
-    reread = ([ci for ci in range(len(starts)) if ci not in trip_cache]
+    reread = ([ci for ci in range(n_chunks) if ci not in trip_cache]
               if spill == "reread" else [])
-    packer_b = (_PackAhead(pack_any, [names[starts[ci]:starts[ci]
-                                            + chunk_docs] for ci in reread])
-                if reread else None)
+    packer_b = (_PackAhead(pack_any, run.chunk_names(
+        [starts[ci] for ci in reread], chunk_docs)) if reread else None)
     drain = (_DrainAhead(functools.partial(_unpack_words_rows,
                                            score_dtype=run.score_dtype))
              if packed_wire else None)
     bpos = 0
+
+    def emit(d: int, out) -> None:
+        nonlocal bytes_off
+        if packed_wire:
+            bytes_off += out.nbytes
+            drain.put(len(owners), out)  # its depth guard bounds the queue
+        else:
+            outs.append(out)
+        owners.append(d)
+
     try:
         if n_scanned:
             cidx = sorted(trip_cache)
             assert cidx == list(range(n_scanned))  # prefix by construction
             trips = [trip_cache.pop(ci) for ci in cidx]
-            words = _phase_b_scan_packed(*(list(p) for p in zip(*trips)),
-                                         idf, topk=k)
-            bytes_off += words.nbytes
-            n_dispatches += 1
-            drain.put(n_scanned - 1, words)
-        for ci in range(len(starts)):
-            if ci < n_scanned:
-                continue  # scored by the scanned prefix
+            for d in range(len(devs)):
+                emit(d, _phase_b_scan_packed(
+                    *(list(p) for p in zip(*(t[d] for t in trips))),
+                    idfs[d], topk=k))
+        for ci in range(n_scanned, n_chunks):
             if ci in trip_cache:
-                i_, c_, h_, lens_dev = trip_cache.pop(ci)
-                if packed_wire:
-                    out = _phase_b_cached_packed(i_, c_, h_, lens_dev, idf,
-                                                 topk=k)
-                else:
-                    out = _phase_b_cached(i_, c_, h_, lens_dev, idf, topk=k)
+                fn = _phase_b_cached_packed if packed_wire \
+                    else _phase_b_cached
+                for d, t in enumerate(trip_cache.pop(ci)):
+                    emit(d, fn(*t, idfs[d], topk=k))
             else:
                 if spill == "host":
                     wire_arr, lengths = cached[ci]
@@ -1261,23 +1437,18 @@ def _run_streaming(run: _Run) -> IngestResult:
                     ph["pack_b"] += time.perf_counter() - t0  # stall only
                 bytes_wire += wire_arr.nbytes + lengths.nbytes
                 bytes_padded += padded_chunk_bytes + lengths.nbytes
-                out = phase_b_any(_upload(wire_arr, dev),
-                                  _upload(lengths, dev), idf)
-            n_dispatches += 1
-            if packed_wire:
-                bytes_off += out.nbytes
-                drain.put(ci, out)  # its depth guard bounds the queue
-                continue
-            vals_parts.append(out[0])
-            ids_parts.append(out[1])
-            marks.append(_Mark(dev))
-            if ci >= max_ahead:  # the same lookahead bound as pass A
-                marks[ci - max_ahead].synchronize()
+                for d, (wire, lens_dev) in enumerate(
+                        run.blocks(wire_arr, lengths)):
+                    emit(d, phase_b_any(wire, lens_dev, idfs[d]))
+            if not packed_wire:
+                marks.append(_Mark(*devs))
+                if ci >= max_ahead:  # the same lookahead bound as pass A
+                    marks[ci - max_ahead].synchronize()
         if packed_wire:
             ph["pass_b"] = time.perf_counter() - t_pass
             t0 = time.perf_counter()
             _trace("fetch_start")
-            parts = drain.results()  # chunk-major by construction
+            parts = drain.results()  # in issue order
             _trace("fetch_done")
             df_host = df_copy.result()
             ph["fetch"] = time.perf_counter() - t0  # stall only
@@ -1288,37 +1459,43 @@ def _run_streaming(run: _Run) -> IngestResult:
             ph["pack_host"] = ph.get("pack_host", 0.0) + packer_b.host_seconds
         if drain is not None:
             drain.close()
-    if packed_wire:
-        vals = np.concatenate([p[0] for p in parts])
-        tids = np.concatenate([p[1] for p in parts])
-    else:
-        _sync(dev)
+    if not packed_wire:
+        _sync(*devs)
         ph["pass_b"] = time.perf_counter() - t_pass
         t0 = time.perf_counter()
         _trace("fetch_start")
-        cat_v, cat_t = torch.cat(vals_parts), torch.cat(ids_parts)
-        bytes_off = cat_v.nbytes + cat_t.nbytes
+        per = [[o for o, w in zip(outs, owners) if w == d]
+               for d in range(len(devs))]
+        cats = [(torch.cat([o[0] for o in p]), torch.cat([o[1] for o in p]))
+                for p in per]
+        bytes_off = sum(v.nbytes + t.nbytes for v, t in cats)
         df_host = _HostCopy(df_acc).result()
-        vals, tids = _HostCopy(cat_v).result(), _HostCopy(cat_t).result()
+        parts = [(_HostCopy(v).result(), _HostCopy(t).result())
+                 for v, t in cats]
         _trace("fetch_done")
         ph["fetch"] = time.perf_counter() - t0
+    n_dispatches = len(owners)
+    if not packed_wire:  # one part per shard
+        owners = list(range(len(devs)))
+    vals, tids = (run.gather(_shard_rows([p[j] for p in parts], owners,
+                                         len(devs), n_chunks), n_chunks)
+                  for j in (0, 1))
     if bwire:
-        all_lengths = [hc.result()[:len(names[s:s + chunk_docs])]
-                       for hc, s in zip(all_lengths, starts)]
+        all_lengths = [hc.result() for hc in all_lengths]
         for key, secs in pack_stats.items():
             ph[f"{key}_host"] = secs
-    return IngestResult(df=df_host, topk_vals=vals[:num_docs],
-                        topk_ids=tids[:num_docs],
-                        lengths=np.concatenate(all_lengths), names=names,
-                        num_docs=num_docs,
+    return IngestResult(df=df_host, topk_vals=vals, topk_ids=tids,
+                        lengths=run.gather(np.concatenate(all_lengths),
+                                           n_chunks),
+                        names=run.names, num_docs=num_docs,
                         df_occupied=int((df_host > 0).sum()),
-                        path="streaming", phases=ph,
+                        path=run.path_name("streaming"), phases=ph,
                         wire=run.wire_name(bwire, ragged),
                         bytes_on_wire=bytes_wire,
                         bytes_on_wire_padded=bytes_padded,
                         result_wire="packed" if packed_wire else "pair",
                         bytes_off_wire=bytes_off,
-                        bytes_off_wire_pair=(len(starts) * chunk_docs * k
+                        bytes_off_wire_pair=(n_chunks * chunk_docs * k
                                              * pair_slot_bytes(
                                                  run.score_dtype)),
                         # "scan" only when the scanned prefix ran

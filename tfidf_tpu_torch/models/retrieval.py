@@ -18,7 +18,7 @@ Scores are cosine similarities in [0, 1] under the default tfidf scorer;
 Entry points run on CUDA unless the caller names another device
 (``TfidfRetriever(cfg, device="cpu")``, ``restore(path, device="cpu")``);
 with no GPU and no device named they raise. Not in this module: the
-docs-sharded mesh search (``plan=`` raises naming ROADMAP A9).
+docs-sharded mesh search (``plan=`` raises naming ROADMAP A9b).
 
 Telemetry, as in the JAX package: a search opens an ``h2d`` span
 (byte-stamped) around the query block's copy to the device and a
@@ -216,7 +216,7 @@ class TfidfRetriever:
 
     Args:
       config: HASHED-vocab pipeline config (default 2^16 vocab).
-      plan: must be None (the docs-sharded mesh search is ROADMAP A9).
+      plan: must be None (the docs-sharded mesh search is ROADMAP A9b).
       scorer: the index-default scorer (explicit > ``TFIDF_TPU_SCORER``
         > tfidf).
       device: CUDA unless named; raises without a GPU and no device.
@@ -227,7 +227,7 @@ class TfidfRetriever:
         if plan is not None:
             raise NotImplementedError(
                 "TfidfRetriever(plan=...) (the docs-sharded mesh search) "
-                "is not ported yet: ROADMAP A9")
+                "is not ported yet: ROADMAP A9b")
         self.config = config or PipelineConfig(vocab_mode=VocabMode.HASHED)
         if self.config.vocab_mode is not VocabMode.HASHED:
             raise ValueError("TfidfRetriever requires HASHED vocab")

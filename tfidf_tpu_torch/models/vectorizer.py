@@ -16,7 +16,7 @@ Estimator semantics:
 
 Requires HASHED vocab. Runs on CUDA unless ``device`` names another;
 with no GPU and no device named it raises. A mesh ``plan`` is ROADMAP
-A9.
+A9b.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ class TfidfVectorizer:
 
     Args:
       config: pipeline config (must be HASHED vocab mode; default 2^16).
-      plan: must be None (the sharded fit is ROADMAP A9).
+      plan: must be None (the sharded fit is ROADMAP A9b).
       batch_docs: minibatch size used when fitting from a corpus.
       device: CUDA unless named; passed on to :class:`StreamingTfidf`.
     """

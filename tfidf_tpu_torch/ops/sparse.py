@@ -201,10 +201,23 @@ def sparse_forward(token_ids: torch.Tensor, lengths: torch.Tensor, num_docs: int
     """Full sparse pipeline step: tokens -> (df, topk | row-sparse scores).
 
     Returns (df, vals, ids) with ``topk``, else (df, ids, counts, head,
-    scores). Never builds [D, V].
+    scores). Never builds [D, V]. The mesh runs the same two halves,
+    :func:`sorted_term_counts` + :func:`sparse_df` then
+    :func:`sparse_finish`, with the docs-axis sum of DF between them
+    (``parallel.collectives``).
     """
     ids, counts, head = sorted_term_counts(token_ids, lengths)
     df = sparse_df(ids, head, vocab_size)
+    return sparse_finish(ids, counts, head, lengths, df, num_docs,
+                         score_dtype=score_dtype, topk=topk)
+
+
+def sparse_finish(ids: torch.Tensor, counts: torch.Tensor, head: torch.Tensor,
+                  lengths: torch.Tensor, df: torch.Tensor, num_docs: int, *,
+                  score_dtype, topk: Optional[int]):
+    """The second half of :func:`sparse_forward`: IDF from the (reduced)
+    ``df``, then (df, vals, ids) with ``topk`` through the fused kernel,
+    else (df, ids, counts, head, scores)."""
     idf = idf_from_df(df, num_docs, score_dtype)
     if topk is not None:
         vals, out_ids = score_topk(ids, counts, head, lengths, idf, topk)

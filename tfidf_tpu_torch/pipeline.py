@@ -28,7 +28,9 @@ it.
 
 The pipeline runs on CUDA unless the caller names another device; with
 no GPU and no device named it raises instead of running on the CPU.
-Mesh configs are not ported yet and raise ``NotImplementedError``.
+A ``config.mesh_shape`` dispatches the run onto a device mesh of that
+device kind: ``parallel.sharded.ShardedPipeline`` for the packed paths,
+the docs-sharded device chargram for ``run_bytes``.
 """
 
 from __future__ import annotations
@@ -155,23 +157,73 @@ def _ngram_streams(byte_ids: torch.Tensor, byte_lengths: torch.Tensor, *,
             torch.cat([v for _, v in streams], dim=1), total_len)
 
 
-def _chargram_forward(byte_ids, byte_lengths, num_docs: int, *,
-                      vocab_size: int, ngram_lo: int, ngram_hi: int,
-                      seed: int, score_dtype, topk: Optional[int]):
-    """The dense device chargram: raw bytes -> (df, docSize, vals, ids)
-    with ``topk``, else (counts, df, docSize, scores). The TF histogram
-    is one masked scatter over every n's stream (the JAX package's XLA
-    scatter, not the TF/DF kernel)."""
+def _chargram_dense_local(byte_ids, byte_lengths, *, vocab_size: int,
+                          ngram_lo: int, ngram_hi: int, seed: int):
+    """The dense chargram's shard-local half: raw bytes -> ((counts,
+    docSize), local df). The TF histogram is one masked scatter over
+    every n's stream (the JAX package's XLA scatter, not the TF/DF
+    kernel)."""
     ids, valid, total_len = _ngram_streams(
         byte_ids, byte_lengths, vocab_size=vocab_size, ngram_lo=ngram_lo,
         ngram_hi=ngram_hi, seed=seed)
     counts = tf_counts_masked(ids, valid, vocab_size)
-    df = df_from_counts(counts)
+    return (counts, total_len), df_from_counts(counts)
+
+
+def _chargram_dense_finish(state, df, num_docs: int, *, vocab_size: int,
+                           score_dtype, topk: Optional[int]):
+    """The dense chargram's second half against the (reduced) ``df``:
+    (df, docSize, vals, ids) with ``topk``, else (counts, df, docSize,
+    scores)."""
+    counts, total_len = state
     scores = tfidf_dense(counts, total_len, df, num_docs, score_dtype)
     if topk is not None:
         tv, ti = topk_per_doc(scores, min(topk, vocab_size))
         return df, total_len, tv, ti
     return counts, df, total_len, scores
+
+
+def _chargram_sparse_local(byte_ids, byte_lengths, *, vocab_size: int,
+                           ngram_lo: int, ngram_hi: int, seed: int):
+    """The row-sparse chargram's shard-local half: sort+RLE triples of
+    the masked streams -> ((ids, counts, head, docSize), local df)."""
+    ids, valid, total_len = _ngram_streams(
+        byte_ids, byte_lengths, vocab_size=vocab_size, ngram_lo=ngram_lo,
+        ngram_hi=ngram_hi, seed=seed)
+    s_ids, counts, head = sorted_term_counts_masked(ids, valid)
+    return (s_ids, counts, head, total_len), sparse_df(s_ids, head,
+                                                       vocab_size)
+
+
+def _chargram_sparse_finish(state, df, num_docs: int, *, vocab_size: int,
+                            score_dtype, topk: int):
+    """The row-sparse chargram's second half: the fused score+top-k
+    kernel against the (reduced) ``df`` -> (df, docSize, vals, ids)."""
+    s_ids, counts, head, total_len = state
+    idf = idf_from_df(df, num_docs, score_dtype)
+    tv, ti = score_topk(s_ids, counts, head, total_len, idf, topk)
+    return df, total_len, tv, ti
+
+
+#: engine -> (shard-local half, finish): the single-device forwards
+#: below and the docs-sharded chargram (``parallel.collectives``) run
+#: the same two halves, the mesh with the docs-axis DF sum between.
+CHARGRAM_STAGES = {"dense": (_chargram_dense_local, _chargram_dense_finish),
+                   "sparse": (_chargram_sparse_local,
+                              _chargram_sparse_finish)}
+
+
+def _chargram_forward(byte_ids, byte_lengths, num_docs: int, *,
+                      vocab_size: int, ngram_lo: int, ngram_hi: int,
+                      seed: int, score_dtype, topk: Optional[int]):
+    """The dense device chargram: raw bytes -> (df, docSize, vals, ids)
+    with ``topk``, else (counts, df, docSize, scores)."""
+    state, df = _chargram_dense_local(byte_ids, byte_lengths,
+                                      vocab_size=vocab_size,
+                                      ngram_lo=ngram_lo, ngram_hi=ngram_hi,
+                                      seed=seed)
+    return _chargram_dense_finish(state, df, num_docs, vocab_size=vocab_size,
+                                  score_dtype=score_dtype, topk=topk)
 
 
 def _chargram_sparse_forward(byte_ids, byte_lengths, num_docs: int, *,
@@ -180,14 +232,13 @@ def _chargram_sparse_forward(byte_ids, byte_lengths, num_docs: int, *,
     """The row-sparse device chargram, the wide-vocab lowering with no
     [D, V] matrix: sort+RLE triples of the masked streams, DF, then the
     fused score+top-k kernel. -> (df, docSize, vals, ids)."""
-    ids, valid, total_len = _ngram_streams(
-        byte_ids, byte_lengths, vocab_size=vocab_size, ngram_lo=ngram_lo,
-        ngram_hi=ngram_hi, seed=seed)
-    s_ids, counts, head = sorted_term_counts_masked(ids, valid)
-    df = sparse_df(s_ids, head, vocab_size)
-    idf = idf_from_df(df, num_docs, score_dtype)
-    tv, ti = score_topk(s_ids, counts, head, total_len, idf, topk)
-    return df, total_len, tv, ti
+    state, df = _chargram_sparse_local(byte_ids, byte_lengths,
+                                       vocab_size=vocab_size,
+                                       ngram_lo=ngram_lo, ngram_hi=ngram_hi,
+                                       seed=seed)
+    return _chargram_sparse_finish(state, df, num_docs,
+                                   vocab_size=vocab_size,
+                                   score_dtype=score_dtype, topk=topk)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -204,24 +255,58 @@ class TfidfPipeline(PhaseTimedMixin):
     ``device``: where tensors and kernels run — CUDA by default (raises
     when absent), ``"cpu"`` for the kernels' plain versions. ``timer``
     (a :class:`PhaseTimer`) accumulates the pack / transfer / compute /
-    fetch phases.
+    fetch phases. ``plan`` (a ``parallel.mesh.MeshPlan`` of the shape
+    ``config.mesh_shape`` names) places a mesh run on its devices, e.g.
+    virtual shards of one card; by default a mesh run takes every
+    visible card (``MeshPlan.create``).
     """
 
     def __init__(self, config: Optional[PipelineConfig] = None,
-                 timer: Optional[PhaseTimer] = None, device=None):
+                 timer: Optional[PhaseTimer] = None, device=None, plan=None):
         self.config = config or PipelineConfig()
         self.timer = timer
-        self.device = resolve_device(device)
+        self.plan = plan
+        self.device = (plan.devices[0] if plan is not None
+                       else resolve_device(device))
 
     def pack(self, corpus: Corpus, pad_docs_to: Optional[int] = None) -> PackedBatch:
         with self._phase("pack"):
             return pack_corpus(corpus, self.config, pad_docs_to)
 
-    def _check_single_device(self) -> None:
-        if self.config.mesh_shape:
-            raise NotImplementedError(
-                "mesh_shape runs (the JAX package's ShardedPipeline) are "
-                "not ported yet: ROADMAP A9")
+    def _mesh_plan(self):
+        """The MeshPlan ``config.mesh_shape`` describes: missing axes
+        default to docs = all remaining devices, seq 1, vocab 1, over
+        this pipeline's device kind (``parallel.mesh``)."""
+        from tfidf_tpu_torch.parallel.mesh import MeshPlan
+
+        shape = dict(self.config.mesh_shape)
+        unknown = set(shape) - {"docs", "seq", "vocab"}
+        if unknown:
+            raise ValueError(f"mesh_shape axes {sorted(unknown)} unknown; "
+                             "valid axes: docs, seq, vocab")
+        docs, seq, vocab = (shape.get("docs", 0), shape.get("seq", 1),
+                            shape.get("vocab", 1))
+        if self.plan is None:
+            return MeshPlan.create(docs=docs, seq=seq, vocab=vocab,
+                                   device=self.device)
+        if (docs or self.plan.n_docs_shards, seq, vocab) != self.plan.shape:
+            raise ValueError(f"plan {self.plan.shape} is not mesh_shape "
+                             f"{shape}")
+        return self.plan
+
+    def _mesh_pipeline(self):
+        """The ShardedPipeline ``config.mesh_shape`` describes. The
+        handed-off config has ``mesh_shape`` cleared (the plan is
+        authoritative from there down) and keeps the engine-defaulted
+        flag, so ShardedPipeline can still apply its capability
+        fallback."""
+        from tfidf_tpu_torch.parallel.sharded import ShardedPipeline
+
+        plan = self._mesh_plan()
+        cfg = dataclasses.replace(self.config, mesh_shape={})
+        object.__setattr__(cfg, "_engine_defaulted",
+                           getattr(self.config, "_engine_defaulted", False))
+        return ShardedPipeline(plan, cfg, timer=self.timer)
 
     def _fetch_topk(self, df, tv, ti, vocab_size: int):
         """Fetch (df, top-k): on the packed wire the [D, K] selection
@@ -235,8 +320,13 @@ class TfidfPipeline(PhaseTimedMixin):
         return _host(df), _host(tv), _host(ti)
 
     def run_packed(self, batch: Batch) -> PipelineResult:
-        self._check_single_device()
         cfg = self.config
+        if cfg.mesh_shape:
+            # The mesh wire stays padded (the shard bodies take [D, L]
+            # rows): a ragged minibatch is rebuilt on the host.
+            if isinstance(batch, RaggedBatch):
+                batch = batch.to_padded()
+            return self._mesh_pipeline().run_packed(batch)
         if cfg.engine == "sparse":
             return self._run_sparse(batch)
         with self._phase("transfer"):
@@ -307,18 +397,19 @@ class TfidfPipeline(PhaseTimedMixin):
         if cfg.vocab_mode is not VocabMode.HASHED:
             raise ValueError("device chargram requires HASHED vocab "
                              "(EXACT needs host-side n-gram strings)")
-        self._check_single_device()
         lo, hi = cfg.ngram_range
-        with self._phase("pack"):
-            packed = pack_bytes(corpus)
-        with self._phase("transfer"):
-            byte_ids = torch.from_numpy(packed.byte_ids).to(self.device)
-            byte_lens = torch.from_numpy(packed.byte_lengths).to(self.device)
         use_sparse = (cfg.engine == "sparse"
                       and (not getattr(cfg, "_engine_defaulted", False)
                            or cfg.vocab_size > (1 << 16)))
         if use_sparse and cfg.topk is None:
             raise ValueError("the sparse device chargram serves top-k runs")
+        if cfg.mesh_shape:
+            return self._run_bytes_mesh(corpus, use_sparse)
+        with self._phase("pack"):
+            packed = pack_bytes(corpus)
+        with self._phase("transfer"):
+            byte_ids = torch.from_numpy(packed.byte_ids).to(self.device)
+            byte_lens = torch.from_numpy(packed.byte_lengths).to(self.device)
         fwd = _chargram_sparse_forward if use_sparse else _chargram_forward
         with self._phase("compute"):
             out = fwd(byte_ids, byte_lens, packed.num_docs,
@@ -339,11 +430,64 @@ class TfidfPipeline(PhaseTimedMixin):
                               num_docs=packed.num_docs, names=packed.names,
                               id_to_word={}, scores=scores)
 
+    def _run_bytes_mesh(self, corpus: Corpus, use_sparse: bool
+                        ) -> PipelineResult:
+        """The docs-sharded device chargram (docs axis only: n-gram
+        windows span adjacent bytes; vocab stays replicated as in the
+        sparse engine), top-k runs only. Outputs keep the mesh's padding
+        rows, as the JAX package's do; the selection leaves each shard
+        as packed words when the word can carry the run, as on one
+        device."""
+        from tfidf_tpu_torch.parallel.collectives import (
+            gather_rows, make_chargram_sharded_forward, place_batch)
+
+        cfg = self.config
+        shape = dict(cfg.mesh_shape)
+        if shape.get("seq", 1) != 1 or shape.get("vocab", 1) != 1:
+            raise ValueError("device chargram shards docs only; use "
+                             "mesh_shape={'docs': N} (run() with the "
+                             "host tokenizer covers other meshes)")
+        plan = self._mesh_plan()
+        lo, hi = cfg.ngram_range
+        fwd = make_chargram_sharded_forward(
+            plan, cfg.vocab_size, lo, hi, cfg.hash_seed,
+            canonical_score_dtype(cfg.score_dtype), cfg.topk,
+            engine="sparse" if use_sparse else "dense")
+        with self._phase("pack"):
+            packed = pack_bytes(corpus,
+                                pad_docs_to=plan.pad_docs(len(corpus)))
+        with self._phase("transfer"):
+            placed = place_batch(plan, packed.byte_ids, packed.byte_lengths)
+        with self._phase("compute"):
+            df, total_len, tv, ti = fwd(placed, packed.num_docs)
+        with self._phase("fetch"):
+            if use_packed_result_wire(cfg, vocab_size=cfg.vocab_size):
+                words = _host(gather_rows(plan, [pack_words(v, i)
+                                                 for v, i in zip(tv, ti)]))
+                vals, ids = unpack_result_words(
+                    words, score_dtype=cfg.score_dtype)
+            else:
+                vals = _host(gather_rows(plan, tv))
+                ids = _host(gather_rows(plan, ti))
+            return PipelineResult(
+                counts=None, lengths=_host(gather_rows(plan, total_len)),
+                df=_host(df), num_docs=packed.num_docs, names=packed.names,
+                id_to_word={}, topk_vals=vals, topk_ids=ids)
+
     def run(self, corpus: Corpus) -> PipelineResult:
         cfg = self.config
-        self._check_single_device()
-        if (cfg.tokenizer is TokenizerKind.CHARGRAM
-                and cfg.vocab_mode is VocabMode.HASHED
-                and cfg.chargram_on_device and cfg.topk is not None):
+        chargram_device = (cfg.tokenizer is TokenizerKind.CHARGRAM
+                           and cfg.vocab_mode is VocabMode.HASHED
+                           and cfg.chargram_on_device
+                           and cfg.topk is not None)
+        if cfg.mesh_shape:
+            # Docs-only meshes keep the device chargram (sharded);
+            # seq/vocab meshes take the host tokenizer.
+            shape = dict(cfg.mesh_shape)
+            if (chargram_device and shape.get("seq", 1) == 1
+                    and shape.get("vocab", 1) == 1):
+                return self.run_bytes(corpus)
+            return self._mesh_pipeline().run(corpus)
+        if chargram_device:
             return self.run_bytes(corpus)
         return self.run_packed(self.pack(corpus))

@@ -35,7 +35,7 @@ Guarantees (the JAX package's, held the same way):
   index in the JAX package's snapshot format.
 
 Not here: the docs-sharded mesh index (``ServeConfig.mesh_shards``
-raises naming ROADMAP A9) and the replicated front
+raises naming ROADMAP A9b) and the replicated front
 (``ServeConfig.replicas`` raises naming ROADMAP A8b).
 """
 
@@ -98,7 +98,7 @@ class TfidfServer:
         if self.config.mesh_shards is not None:
             raise NotImplementedError(
                 "ServeConfig.mesh_shards (serving one index doc-sharded "
-                "over several devices) is not ported yet: ROADMAP A9")
+                "over several devices) is not ported yet: ROADMAP A9b")
         if self.config.replicas is not None:
             raise NotImplementedError(
                 "ServeConfig.replicas (the replicated serving front) is "

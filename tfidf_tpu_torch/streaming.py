@@ -24,7 +24,7 @@ int32 ``[V]``, ``docs_seen`` 0-d), so a state dict from either package
 loads into the other; ``checkpoint.save_state`` persists it.
 
 Runs on CUDA unless a device is named; with no GPU and no device named
-it raises. A mesh ``plan`` (the docs-sharded stream) is ROADMAP A9.
+it raises. A mesh ``plan`` (the docs-sharded stream) is ROADMAP A9b.
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ class StreamingTfidf:
         if plan is not None:
             raise NotImplementedError(
                 "StreamingTfidf(plan=...) (the docs-sharded stream) is not "
-                "ported yet: ROADMAP A9")
+                "ported yet: ROADMAP A9b")
         cfg = config or PipelineConfig(vocab_mode=VocabMode.HASHED)
         if cfg.vocab_mode is not VocabMode.HASHED:
             raise ValueError("streaming requires VocabMode.HASHED "
