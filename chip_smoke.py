@@ -86,8 +86,9 @@ Phases, each printed as one JSON line:
    1,024 = 4,096 bit for bit; the first 64 rows of a Q = 256 search
    equal the Q = 64 search; a snapshot restored on the CPU and an
    8,192-doc index built on both devices agree with the card
-   (``compare_search``). Prints index seconds, warm search latency and
-   qps with the median host time of ``fill_query_matrix`` inside those
+   (``compare_search``). Prints index seconds, warm search latency
+   (medians of 10) and qps with the median host time of
+   ``fill_query_matrix`` inside those
    searches, that time alone, a device profile of one warm Q = 64
    search, B6's launches in such a search timed by CUDA events (a sleep
    kernel holds the stream around each), and unfiltered and id_range
@@ -150,10 +151,13 @@ Phases, each printed as one JSON line:
 15. ``path_mesh``: the mesh run paths on 4 virtual shards of the card
    (``MeshPlan.create(docs=4, devices=["cuda:0"] * 4)``), each held bit
    for bit against the port's single-device run on the card: before it,
-   three ``python -m tfidf_tpu_torch.cli run --doc-len 256`` subprocesses
-   without ``--device`` over the 32,768 files at once (plain,
-   ``--mesh 1,1,1`` and ``--ingest-workers 4``), the last two's bytes
-   held to the first's. ``ShardedPipeline.run_packed`` of the 32,768-doc
+   nine ``python -m tfidf_tpu_torch.cli`` subprocesses without
+   ``--device`` over the 32,768 files at once (``cli_commands``: ``run
+   --doc-len 256`` plain, ``--mesh 1,1,1`` and ``--ingest-workers 4``;
+   ``query`` and ``stream`` plain and ``--mesh-docs 1``; ``serve
+   --doc-len 256`` plain and ``--mesh-shards 1`` on one set of request
+   lines), the mesh runs' bytes held to the plain ones' here and in the
+   next three phases. ``ShardedPipeline.run_packed`` of the 32,768-doc
    batch, sparse at docs 4 (B1 and B3 once a shard) and dense at {docs
    2, vocab 2} (B2 a shard, at id offsets 0 and 2,048) and {docs 2, seq
    2}; the golden 64 docs at docs 4 (``golden_output``'s bytes); both
@@ -169,7 +173,32 @@ Phases, each printed as one JSON line:
    the merged result equal to ``path_ingest_resident``'s; B4, B1 and B3
    launched in every worker; each worker's walls, upload seconds,
    link utilization, reserved bytes and the card's bytes in use.
-17. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
+17. ``path_mesh_serve``: the search side of the mesh, each result held
+   bit for bit against one device's. ``make_serving_plan(4)`` raises on
+   one card; on ``make_serving_plan(4, devices=["cuda:0"] * 4)``,
+   ``shard_index`` of the retrieval index searched at Q 1, 64 and 256,
+   k 10, tfidf, bm25 and an id_range filter (B6 once a tile of each
+   shard: 4 x 8), each search timed beside the single-device one; the
+   shard stats and the card's bytes in use (``mem_get_info``) before and
+   after; ``TfidfRetriever(plan=)`` over the 131,072 docs (the batch
+   packing: no document is past 256 tokens, so its rows are the
+   retrieval index's) against that index; ``path_segmented``'s compacted view
+   sharded, against ``view.search``; path_serve's load (8 clients x 32
+   requests, depth 1) on the index and on its 4 shards, every answer
+   equal to a direct search; ``ServeConfig(mesh_shards=1)``: the
+   constructor, ``swap_index`` to the 32,768-doc index and back (timed),
+   a snapshot restored, ``add_docs``/``delete_docs`` on the segmented
+   index each install a ``MeshShardedRetriever`` whose answers equal its
+   source's, and the canary (its oracle the single-device source)
+   probes 1.0; ``StreamingTfidf(plan=)`` over the 32,768 docs in 4
+   minibatches, sparse at docs 4 (B1, B3 a shard) and dense at {docs 2,
+   vocab 2} (B2 at each vocab offset), DF and words equal one device's;
+   the CLI's ``--mesh-docs 1`` / ``--mesh-shards 1`` runs equal to the
+   plain ones; and two gloo processes on the card (``MeshPlan.create(
+   docs=2)``, world 2: the card once a rank) running the mesh ingest of
+   the 32,768 files, each rank's DF, words, scores and lengths equal to
+   the single-device run's.
+18. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
    131,072-doc index at ``ServeConfig`` defaults (max_batch 256), warmed
    over every query bucket, under 8 client threads of 32 requests each
    (1-4 of the Zipf queries, k 10, tfidf / bm25 / tfidf + id_range in
@@ -194,9 +223,10 @@ Phases, each printed as one JSON line:
    reads the card's allocator (bytes in use > 0) and its census finds
    the resident index's bytes exactly. ``python -m tfidf_tpu_torch.cli
    serve`` over the 32,768-doc directory in a subprocess, without
-   ``--device``: 16 query lines then ``healthz``, ``readyz``,
-   ``metrics``, ``devmon`` and ``shutdown``; it exits 0, its names and
-   scores equal the library's search and its backend is ``cuda``.
+   ``--device`` (run with the other CLI runs before ``path_mesh``): 16
+   query lines then ``healthz``, ``readyz``, ``metrics``, ``devmon`` and
+   ``shutdown``; it exits 0, its names and scores equal the library's
+   search and its backend is ``cuda``.
 Then the run's seconds (``run_time``), the ``kernels`` summary line, the
 card's name and power limit as ``nvidia-smi`` prints them, and last
 ``{"ok": true, "device": ...}``.
@@ -238,6 +268,7 @@ RETR_CHUNK = 8192         # path_retrieval: 16 chunks of the ingest corpus
 RETR_TILE = 4096          # the default doc tile (TFIDF_TPU_QUERY_BLOCK)
 RETR_K = 10
 RETR_QUERIES = 256
+RETR_REPS = 10            # path_retrieval: timed searches a median
 RETR_SMALL = 8192         # path_retrieval: the index built on both devices
 STREAM_BATCH = 8192       # path_stream: 16 minibatches of the ingest corpus
 STREAM_SAVE_AT = 7        # path_stream: save_state after minibatch 7
@@ -1435,7 +1466,8 @@ def path_retrieval(T, K, root, corpus_docs, total):
             results[name, q] = res
             launches_per_search[f"{name}/Q{q}"] = launches["tile_scores"]
             with timed_calls(R, "fill_query_matrix") as fills:
-                ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw))
+                ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw),
+                             reps=RETR_REPS, warmup=2)
             # one fill a search: the median of the loop's calls, warm-ups in
             latency[f"{name}/Q{q}"] = {"ms": ms, "qps": q / ms * 1e3,
                                        "fill_ms": statistics.median(fills)}
@@ -1558,7 +1590,9 @@ def path_stream(T, K, root, corpus_docs, ingest_df, total):
     pack_ragged (B4 every update and score; B1 and B3 every score), held
     against the resident ingest's DF, the port's CPU run and a resume from
     a checkpoint; one dense minibatch (B2); the vectorizer's [D, V]
-    transform (B2); cli stream killed after a minibatch and resumed."""
+    transform (B2); cli stream killed after a minibatch and resumed.
+    Returns the uninterrupted cli stream's bytes (path_mesh_serve holds
+    ``stream --mesh-docs 1`` to them)."""
     from tfidf_tpu_torch import checkpoint as ckpt
     from tfidf_tpu_torch import cli
     from tfidf_tpu_torch.models import TfidfVectorizer
@@ -1733,6 +1767,7 @@ def path_stream(T, K, root, corpus_docs, ingest_df, total):
                   "resumed_launches": resumed_launches,
                   "bytes_equal": True, "output_bytes": len(want)},
           "ok": True})
+    return want
 
 
 # --- path_segmented: SegmentedIndex, mutations, compaction, views --------
@@ -1830,7 +1865,8 @@ def path_segmented(T, K, corpus_docs, queries, total):
     seals and a compaction, views and searches (B6 every tile), every
     final search equal to rebuild_retriever() bit for bit, tiled equal
     to untiled, save/restore, and the stream replayed on an 8,192-doc
-    base on the card and the CPU with equal searches."""
+    base on the card and the CPU with equal searches. Returns the
+    compacted index (path_mesh_serve shards its view)."""
     from tfidf_tpu_torch.index import SegmentedIndex
 
     n = len(corpus_docs)
@@ -1907,7 +1943,7 @@ def path_segmented(T, K, corpus_docs, queries, total):
                            view.search(queries[:64], k=RETR_K, **kw))
               and bview.names == view.names,
               f"path_segmented {name}: restored index differs")
-    del back, bview, oracle, view, idx
+    del back, bview, oracle, view
 
     # the same stream on an 8,192-doc base, on the card and on the CPU
     small = T.Corpus(names=corpus.names[:RETR_SMALL],
@@ -1960,6 +1996,7 @@ def path_segmented(T, K, corpus_docs, queries, total):
                            "card_mutate_s": grun["mutate_s"],
                            "cpu_s": cpu_replay_s, "card_equals_cpu": True},
           "ok": True})
+    return idx
 
 
 # --- path_exact_terms: the exact-terms mode, both engines ---------------
@@ -2334,33 +2371,79 @@ def _same_topk(a, b, n: int) -> bool:
             and np.array_equal(va.view(np.uint8), vb.view(np.uint8)))
 
 
-def cli_runs(small, runs: dict) -> dict:
-    """``python -m tfidf_tpu_torch.cli run --doc-len`` over the 32,768
-    files once per entry of ``runs`` (label -> extra flags), all at once
-    in subprocesses without ``--device`` (so on cuda); raises unless each
-    exits 0. Returns label -> {"bytes", "seconds", "stderr"}."""
+def cli_runs(runs: dict) -> dict:
+    """``python -m tfidf_tpu_torch.cli`` once per entry of ``runs`` (label
+    -> (argv, stdin text or None)), all at once in subprocesses without
+    ``--device`` (so on cuda); raises unless each exits 0. An argv item
+    ``"{out}"`` becomes a file path whose bytes are returned; without one
+    the bytes are stdout's. Returns label -> {"bytes", "seconds",
+    "stderr", "concurrent"}."""
     import concurrent.futures as cf
 
-    def one(label, extra, tmp):
-        path = os.path.join(tmp, f"{label}.txt")
+    def one(label, argv, stdin, tmp):
+        path = os.path.join(tmp, f"{label}.out")
+        argv = [path if a == "{out}" else a for a in argv]
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "tfidf_tpu_torch.cli", "run", "--input",
-             small, "--output", path, "--vocab-mode", "hashed", "--topk",
-             str(TOPK), "--doc-len", str(DOC_LEN), *extra],
-            capture_output=True, text=True, cwd=REPO, timeout=600)
+            [sys.executable, "-m", "tfidf_tpu_torch.cli", *argv],
+            input=stdin, capture_output=True, text=True, cwd=REPO,
+            timeout=600, env={**os.environ, "PYTHONPATH": REPO})
         secs = time.perf_counter() - t0
         check(proc.returncode == 0, f"cli {label} exit {proc.returncode}: "
               f"{proc.stderr[-2000:]}")
-        with open(path, "rb") as f:
-            return {"bytes": f.read(), "seconds": secs,
-                    "stderr": proc.stderr}
+        if path in argv:
+            with open(path, "rb") as f:
+                out = f.read()
+        else:
+            out = proc.stdout.encode()
+        return {"bytes": out, "seconds": secs, "stderr": proc.stderr,
+                "concurrent": len(runs)}
 
     with tempfile.TemporaryDirectory() as tmp, \
             cf.ThreadPoolExecutor(max_workers=len(runs)) as ex:
-        jobs = {label: ex.submit(one, label, extra, tmp)
-                for label, extra in runs.items()}
+        jobs = {label: ex.submit(one, label, argv, stdin, tmp)
+                for label, (argv, stdin) in runs.items()}
         return {label: job.result() for label, job in jobs.items()}
+
+
+def query_args(small, queries) -> list:
+    """``cli query`` over the 32,768 files with SERVE_CLI_QUERIES
+    queries: the batch index (``--mesh-docs`` takes no ``--doc-len``)."""
+    args = ["query", "--input", small, "-k", str(RETR_K)]
+    for q in queries[:SERVE_CLI_QUERIES]:
+        args += ["--query", q]
+    return args
+
+
+def cli_commands(small, queries) -> dict:
+    """The CLI runs the mesh, multi-process, mesh-serve and serve phases
+    check, over the 32,768 files: ``run --doc-len 256`` plain, with
+    ``--mesh 1,1,1`` and with ``--ingest-workers 4``; ``query`` and
+    ``stream`` with ``--mesh-docs 1`` (their plain runs are
+    path_mesh_serve's and path_stream's, in process); ``serve --doc-len
+    256`` plain and with ``--mesh-shards 1`` on the same request lines."""
+    run = ["run", "--input", small, "--output", "{out}", "--vocab-mode",
+           "hashed", "--topk", str(TOPK), "--doc-len", str(DOC_LEN)]
+    # path_stream's cli stream arguments
+    stream = ["stream", "--input", small, "--output", "{out}",
+              "--batch-docs", str(STREAM_BATCH), "--doc-len", str(DOC_LEN),
+              "--vocab-size", str(SPARSE_VOCAB), "--topk", str(TOPK)]
+    serve = ["serve", "--input", small, "--doc-len", str(DOC_LEN), "-k",
+             str(RETR_K), "--canary-period-ms", "0"]
+    lines = [json.dumps({"id": i, "queries": [queries[i]], "k": RETR_K})
+             for i in range(SERVE_CLI_QUERIES)]
+    lines += [json.dumps({"id": f"op_{op}", "op": op})
+              for op in ("healthz", "readyz", "metrics", "devmon")]
+    lines.append(json.dumps({"op": "shutdown"}))
+    lines = "\n".join(lines) + "\n"
+    return {"single": (run, None),
+            "mesh_111": (run + ["--mesh", "1,1,1"], None),
+            "workers_4": (run + ["--ingest-workers", "4"], None),
+            "query_mesh_1": (query_args(small, queries)
+                             + ["--mesh-docs", "1"], None),
+            "stream_mesh_1": (stream + ["--mesh-docs", "1"], None),
+            "serve_single": (serve, lines),
+            "serve_mesh_1": (serve + ["--mesh-shards", "1"], lines)}
 
 
 def path_mesh(T, K, ingest, corpus, gold, big, small, rg, streamed,
@@ -2591,6 +2674,459 @@ def path_multiprocess(T, K, _build, big, rg, total, cli):
           "seconds": time.perf_counter() - t_phase, "ok": True})
 
 
+# --- path_mesh_serve: the search side of the mesh --------------------------
+
+MESH_SERVE_SHARDS = 4     # path_mesh_serve: virtual shards of the one card
+MESH_SERVE_SETTINGS = {"tfidf": {}, "bm25": {"scorer": "bm25"},
+                       "tfidf+id_range": {"filter": {"id_range": [0, 65536]}}}
+MESH_SERVE_CALLS = 2      # path_mesh_serve: add_docs calls (then a delete)
+MESH_SERVE_REPS = 3       # path_mesh_serve: timed searches a median
+
+# Run as ``python -c GLOO_RANK REPO ADDR RANK INPUT EXPECT``: one of two
+# processes of a gloo mesh on the one card (MeshPlan.create(docs=2): the
+# card once per rank, world 2), the mesh ingest of INPUT held bit for bit
+# against the single-device run saved in EXPECT; prints one JSON line.
+GLOO_RANK = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import tfidf_tpu_torch as T
+from tfidf_tpu_torch.ingest import run_overlapped
+from tfidf_tpu_torch.ops import kernels as K
+from tfidf_tpu_torch.parallel import MeshPlan
+from tfidf_tpu_torch.parallel.multihost import initialize
+
+addr, rank, input_dir, expect = sys.argv[2], int(sys.argv[3]), sys.argv[4], \
+    sys.argv[5]
+topo = initialize(addr, 2, rank)
+plan = MeshPlan.create(docs=2)
+assert (plan.n_docs_shards, plan.n_local_docs, plan.first_docs_shard,
+        plan.world, str(plan.devices[0])) == (2, 1, rank, 2, "cuda:0"), plan
+cfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED, vocab_size=%d,
+                       max_doc_len=%d, doc_chunk=%d, topk=%d)
+K.reset_launches()
+t0 = time.perf_counter()
+r = run_overlapped(input_dir, cfg, chunk_docs=%d, doc_len=%d, plan=plan)
+wall = time.perf_counter() - t0
+exp = np.load(expect)
+host = lambda x: x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+same = {f: bool(host(getattr(r, f)).dtype == exp[f].dtype
+                and np.array_equal(host(getattr(r, f)).view(np.uint8),
+                                   exp[f].view(np.uint8)))
+        for f in ("df", "topk_ids", "topk_vals", "lengths")}
+print(json.dumps({"rank": rank, "path": r.path, "same": same,
+                  "launches": dict(K.LAUNCHES), "wall_s": wall}))
+""" % (SPARSE_VOCAB, DOC_LEN, DOC_LEN, TOPK, STREAM_CHUNK, DOC_LEN)
+
+
+def gloo_ranks(T, ingest, small, total) -> dict:
+    """Two gloo processes on the one card, each holding one shard of a
+    2-shard docs mesh, ingest the 32,768 files (resident mesh regime);
+    each rank's DF, words, scores and lengths equal the single-device
+    run's bit for bit. The parent has built the kernels, so the ranks
+    load them."""
+    import socket
+
+    icfg = T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                            vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                            doc_chunk=DOC_LEN, topk=TOPK)
+    ref = ingest.run_overlapped(small, icfg, chunk_docs=STREAM_CHUNK,
+                                doc_len=DOC_LEN)
+
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        expect = os.path.join(tmp, "expect.npz")
+        np.savez(expect, **{f: host(getattr(ref, f)) for f in
+                            ("df", "topk_ids", "topk_vals", "lengths")})
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            addr = f"localhost:{sock.getsockname()[1]}"
+        env = {key: v for key, v in os.environ.items()
+               if key not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                              "RANK")}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", GLOO_RANK, REPO, addr, str(rank), small,
+             expect], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=REPO) for rank in range(2)]
+        try:
+            outs = [p.communicate(timeout=400) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+    ranks = []
+    for p, (out, err) in zip(procs, outs):
+        check(p.returncode == 0, f"path_mesh_serve gloo rank exit "
+              f"{p.returncode}: {err[-2000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        check(rec["path"] == "resident-mesh" and all(rec["same"].values()),
+              f"path_mesh_serve gloo rank {rec['rank']}: {rec}")
+        for kernel in ("fused_score_topk", "pack_words"):
+            check(rec["launches"][kernel] > 0, f"path_mesh_serve gloo rank "
+                  f"{rec['rank']}: {kernel} never launched")
+        for kernel, c in rec["launches"].items():
+            total[kernel] += c
+        ranks.append(rec)
+    return {"world": 2, "backend": "gloo", "docs": N_DOCS,
+            "single_path": ref.path, "wall_s": wall, "ranks": ranks,
+            "bit_equal_to_single_device": True}
+
+
+def path_mesh_serve(T, K, _build, ingest, r, cfg, queries, big_docs, seg_idx,
+                    small, small_corpus, total, cli, stream_cli):
+    """The search side of the mesh on MESH_SERVE_SHARDS virtual shards of
+    the card: MeshShardedRetriever, TfidfRetriever(plan=), a sharded
+    segmented view, a served load, the server's install paths under
+    mesh_shards, the mesh stream, the CLI's --mesh-docs/--mesh-shards and
+    two gloo ranks; each held bit for bit against one device's run."""
+    from tfidf_tpu_torch.config import ServeConfig
+    from tfidf_tpu_torch.parallel import (MeshPlan, MeshShardedRetriever,
+                                          make_serving_plan, shard_index)
+    from tfidf_tpu_torch.parallel.multihost import _card_bytes_in_use
+    from tfidf_tpu_torch.serve import CanaryProber, TfidfServer
+    from tfidf_tpu_torch.streaming import StreamingTfidf
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    n = r._num_docs
+    out = {}
+    try:
+        make_serving_plan(MESH_SERVE_SHARDS)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused == (torch.cuda.device_count() < MESH_SERVE_SHARDS),
+          "path_mesh_serve: make_serving_plan past the cards did not raise")
+    plan = make_serving_plan(MESH_SERVE_SHARDS,
+                             devices=[cuda] * MESH_SERVE_SHARDS)
+
+    def counted(fn):
+        K.reset_launches()
+        res = fn()
+        launches = dict(K.LAUNCHES)
+        for kernel, c in launches.items():
+            total[kernel] += c
+        return res, launches
+
+    # 1. MeshShardedRetriever over the retrieval index, every setting
+    torch.cuda.synchronize()
+    before = _card_bytes_in_use(cuda)  # CUDA contexts included
+    t0 = time.perf_counter()
+    sharded = shard_index(r, plan)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    check(sharded.n_shards == MESH_SERVE_SHARDS
+          and sharded.parity_oracle() is r and shard_index(sharded, plan)
+          is sharded, "path_mesh_serve: shard_index contract")
+    n_tiles = MESH_SERVE_SHARDS * -(-(n // MESH_SERVE_SHARDS) // RETR_TILE)
+    searches = {}
+    for name, kw in MESH_SERVE_SETTINGS.items():
+        for q in (1, 64, RETR_QUERIES):
+            qs = queries[:q]
+            got, launches = counted(lambda: sharded.search(qs, k=RETR_K,
+                                                           **kw))
+            check(launches["tile_scores"] == n_tiles,
+                  f"path_mesh_serve {name} Q={q}: B6 launched "
+                  f"{launches['tile_scores']} times, not {n_tiles}")
+            check(_same_search(got, r.search(qs, k=RETR_K, **kw)),
+                  f"path_mesh_serve {name} Q={q}: sharded differs from "
+                  f"the single-device search")
+            # medians of MESH_SERVE_REPS, both warm (the calls above)
+            single_ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw),
+                                reps=MESH_SERVE_REPS, warmup=0)
+            sharded_ms = host_ms(lambda: sharded.search(qs, k=RETR_K, **kw),
+                                 reps=MESH_SERVE_REPS, warmup=0)
+            searches[f"{name}/Q{q}"] = {
+                "single_ms": single_ms, "sharded_ms": sharded_ms,
+                "ratio": sharded_ms / single_ms,
+                "b6_launches": launches["tile_scores"]}
+    torch.cuda.synchronize()
+    out["sharded_retriever"] = {
+        "shards": MESH_SERVE_SHARDS, "docs": n, "shard_s": shard_s,
+        "b6_launches_per_search": n_tiles, "searches": searches,
+        "shard_stats": sharded.shard_stats(),
+        "card_bytes_in_use_before": before,
+        "card_bytes_in_use_after": _card_bytes_in_use(cuda)}
+
+    # 2. TfidfRetriever(plan=): the batch packing of the same documents
+    # (their longest is DOC_LEN tokens, so its rows are the retrieval
+    # index's), against the single-device index
+    corpus = T.Corpus(names=[f"doc{i}" for i in range(1, n + 1)],
+                      docs=big_docs)
+    t0 = time.perf_counter()
+    plan_r, launches = counted(
+        lambda: T.TfidfRetriever(cfg, plan=plan).index(corpus))
+    torch.cuda.synchronize()
+    plan_index_s = time.perf_counter() - t0
+    rows = int(plan_r._blocks[0][0].shape[0])
+    plan_searches = {}
+    for q in (1, 64, RETR_QUERIES):
+        qs = queries[:q]
+        got, launches = counted(lambda: plan_r.search(qs, k=RETR_K))
+        check(launches["tile_scores"]
+              == MESH_SERVE_SHARDS * -(-rows // RETR_TILE),
+              f"path_mesh_serve plan Q={q}: B6 {launches['tile_scores']}")
+        check(_same_search(got, r.search(qs, k=RETR_K)),
+              f"path_mesh_serve plan Q={q}: TfidfRetriever(plan=) differs "
+              f"from the single-device index")
+        plan_searches[f"Q{q}"] = {"b6_launches": launches["tile_scores"]}
+    plan_searches["Q64"].update(
+        single_ms=searches["tfidf/Q64"]["single_ms"],
+        plan_ms=host_ms(lambda: plan_r.search(queries[:64], k=RETR_K),
+                        reps=MESH_SERVE_REPS, warmup=0))
+    out["plan_retriever"] = {"plan_index_s": plan_index_s,
+                             "rows_per_shard": rows,
+                             "searches": plan_searches}
+    del plan_r
+
+    # 3. a sharded segmented view (the compacted index of path_segmented)
+    view = seg_idx.view()
+    sview = shard_index(view, plan)
+    view_searches = {}
+    for name, kw in MESH_SERVE_SETTINGS.items():
+        for q in (1, 64, RETR_QUERIES):
+            qs = queries[:q]
+            got, launches = counted(lambda: sview.search(qs, k=RETR_K, **kw))
+            check(launches["tile_scores"] > 0, f"path_mesh_serve view "
+                  f"{name} Q={q}: B6 never launched")
+            check(_same_search(got, view.search(qs, k=RETR_K, **kw)),
+                  f"path_mesh_serve view {name} Q={q}: differs from "
+                  f"view.search")
+            view_searches[f"{name}/Q{q}"] = launches["tile_scores"]
+    out["sharded_view"] = {
+        "segments": view.num_segments, "live_docs": view._num_docs,
+        "rows": sview._rows, "b6_launches": view_searches,
+        "view_q64_ms": host_ms(lambda: view.search(queries[:64], k=RETR_K),
+                               reps=MESH_SERVE_REPS, warmup=0),
+        "sharded_q64_ms": host_ms(
+            lambda: sview.search(queries[:64], k=RETR_K),
+            reps=MESH_SERVE_REPS, warmup=0)}
+    del sview
+
+    # 4. path_serve's depth-1 load, once on the index and once on its 4
+    # shards
+    requests = serve_requests(np.random.default_rng(SEED + 7), queries)
+    n_requests = sum(len(x) for x in requests)
+    n_queries = sum(len(qs) for reqs in requests for qs, _ in reqs)
+    direct = [[r.search(qs, k=RETR_K, **kw) for qs, kw in reqs]
+              for reqs in requests]
+    loads = {}
+    for label, index in (("single", r), ("sharded", sharded)):
+        srv = TfidfServer(index, ServeConfig(pipeline_depth=1))
+        try:
+            b = 1
+            while b <= srv.config.max_batch:
+                index.search([""] * b, k=RETR_K)
+                b *= 2
+            srv.mark_warm()
+            torch.cuda.synchronize()
+            (answers, lat_ms, wall), launches = counted(
+                lambda: serve_load(srv, requests))
+            check(launches["tile_scores"] > 0,
+                  f"path_mesh_serve load {label}: B6 never launched")
+            loads[label] = serve_figures(srv, lat_ms, wall, n_requests,
+                                         n_queries, launches)
+            check(srv.compile_watch.recompile_count == 0,
+                  f"path_mesh_serve load {label}: builds after warm-up")
+        finally:
+            srv.close()
+        check_serve_threads_gone(f"the {label} mesh-serve load")
+        for t, reqs in enumerate(requests):
+            for i in range(len(reqs)):
+                check(_same_search(answers[t][i], direct[t][i]),
+                      f"path_mesh_serve load {label}: request {t}/{i} "
+                      f"differs from a direct search")
+    out["served_load"] = loads
+
+    # 5. the install paths under ServeConfig(mesh_shards=1): one card
+    new = T.TfidfRetriever(cfg).index_dir(small, doc_len=DOC_LEN,
+                                          chunk_docs=RETR_CHUNK)
+    installs = {}
+    srv = TfidfServer(r, ServeConfig(mesh_shards=1))
+    try:
+        _, installed = srv.current_index()
+        check(isinstance(installed, MeshShardedRetriever)
+              and installed.n_shards == 1 and installed.parity_oracle() is r,
+              "path_mesh_serve: the constructor did not shard the index")
+        canary = CanaryProber(srv, queries[:8], k=RETR_K, period_s=30)
+        try:
+            check(canary.probe() == 1.0, "path_mesh_serve: canary < 1.0")
+            for label, index in (("to_32768", new), ("back_to_131072", r)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                epoch = srv.swap_index(index)
+                torch.cuda.synchronize()
+                installs[f"swap_{label}_s"] = time.perf_counter() - t0
+                _, installed = srv.current_index()
+                check(isinstance(installed, MeshShardedRetriever)
+                      and installed.parity_oracle() is index,
+                      f"path_mesh_serve: swap {label} installed "
+                      f"{type(installed).__name__}")
+                check(_same_search(srv.search(queries[:64], k=RETR_K,
+                                              timeout=300),
+                                   index.search(queries[:64], k=RETR_K)),
+                      f"path_mesh_serve: after the swap {label}, answers "
+                      f"differ from the index's search")
+                check(canary.probe() == 1.0,
+                      f"path_mesh_serve: canary < 1.0 after swap {label}")
+                installs[f"swap_{label}_epoch"] = epoch
+        finally:
+            canary.close()
+    finally:
+        srv.close()
+    # snapshot -> restore re-shards (the 32,768-doc index)
+    with tempfile.TemporaryDirectory() as snap:
+        srv = TfidfServer(new, ServeConfig(mesh_shards=1, snapshot_dir=snap))
+        try:
+            t0 = time.perf_counter()
+            srv.snapshot()
+            installs["snapshot_s"] = time.perf_counter() - t0
+            want = srv.search(queries[:64], k=RETR_K, timeout=300)
+        finally:
+            srv.close()
+        t0 = time.perf_counter()
+        restored, _ = T.TfidfRetriever.restore(snap, cfg)
+        srv = TfidfServer(restored, ServeConfig(mesh_shards=1))
+        try:
+            installs["restore_and_shard_s"] = time.perf_counter() - t0
+            _, installed = srv.current_index()
+            check(isinstance(installed, MeshShardedRetriever)
+                  and installed.parity_oracle() is restored,
+                  "path_mesh_serve: a restored index was not sharded")
+            check(_same_search(srv.search(queries[:64], k=RETR_K,
+                                          timeout=300), want),
+                  "path_mesh_serve: the restored server's answers differ")
+        finally:
+            srv.close()
+    # add_docs / delete_docs install sharded views
+    srv = TfidfServer(seg_idx.view(), ServeConfig(mesh_shards=1))
+    srv.attach_segments(seg_idx)
+    rng = np.random.default_rng(SEED + 9)
+    mutations = []
+    try:
+        calls = [("add", [f"meshserved{j}" for j in range(
+            c * SEG_CALL, (c + 1) * SEG_CALL)],
+            zipf_docs(rng, SEG_CALL)) for c in range(MESH_SERVE_CALLS)]
+        calls.append(("delete", [f"doc{j}" for j in
+                                 rng.permutation(n)[:SEG_CALL] + 1], None))
+        for kind, names, docs in calls:
+            t0 = time.perf_counter()
+            got = (srv.add_docs(names, docs) if kind == "add"
+                   else srv.delete_docs(names))
+            secs = time.perf_counter() - t0
+            _, installed = srv.current_index()
+            check(isinstance(installed, MeshShardedRetriever)
+                  and got["epoch"] == srv.epoch,
+                  f"path_mesh_serve: {kind} installed "
+                  f"{type(installed).__name__}")
+            oracle = installed.parity_oracle()
+            for kw in ({}, {"scorer": "bm25"}):
+                check(_same_search(
+                    srv.search(queries[:16], k=RETR_K, timeout=300, **kw),
+                    oracle.search(queries[:16], k=RETR_K, **kw)),
+                    f"path_mesh_serve: after {kind}, answers differ from "
+                    f"the view's search ({kw})")
+            mutations.append({"kind": kind, "docs": len(names),
+                              "install_s": secs, "epoch": got["epoch"]})
+    finally:
+        srv.close()
+    check_serve_threads_gone("the mesh_shards servers")
+    installs["mutations"] = mutations
+    out["installs_mesh_shards_1"] = installs
+    del new, restored
+
+    # 6. the mesh stream over the 32,768 docs: sparse at docs 4 (B1, B3 a
+    # shard), dense at {docs 2, vocab 2} (B2 at each vocab offset)
+    streams = {}
+    batches = [T.Corpus(names=small_corpus.names[s:s + STREAM_CHUNK],
+                        docs=small_corpus.docs[s:s + STREAM_CHUNK])
+               for s in range(0, len(small_corpus), STREAM_CHUNK)]
+    for label, vocab, mesh, expect in (
+            ("sparse_docs4", SPARSE_VOCAB, {"docs": 4},
+             ("fused_score_topk", "pack_words")),
+            ("dense_docs2_vocab2", DENSE_VOCAB, {"docs": 2, "vocab": 2},
+             ("tf_df", "pack_words"))):
+        scfg = _stream_cfg(T, vocab, topk=TOPK,
+                           engine="dense" if "dense" in label else None)
+        mplan = MeshPlan.create(**mesh, devices=[cuda] * 4)
+        single_s = StreamingTfidf(scfg)
+        mesh_s = StreamingTfidf(scfg, mplan)
+        packed = [single_s.pack_ragged(b, fixed_len=DOC_LEN)
+                  for b in batches]
+        t0 = time.perf_counter()
+        for p in packed:
+            single_s.update(p)
+        want = [single_s.score(p) for p in packed]
+        torch.cuda.synchronize()
+        single_wall = time.perf_counter() - t0
+
+        def run_mesh():
+            for p in packed:
+                mesh_s.update(p)
+            return [mesh_s.score(p) for p in packed]
+
+        t0 = time.perf_counter()
+        got, launches = counted(run_mesh)
+        torch.cuda.synchronize()
+        mesh_wall = time.perf_counter() - t0
+        for kernel in expect:
+            check(launches[kernel] > 0, f"path_mesh_serve stream {label}: "
+                  f"{kernel} never launched")
+        check(launches["ragged_rebuild"] == 0, f"path_mesh_serve stream "
+              f"{label}: B4 ran on the mesh wire")
+        check(np.array_equal(mesh_s.df(), single_s.df()),
+              f"path_mesh_serve stream {label}: DF differs")
+        for (gv, gi), (wv, wi) in zip(got, want):
+            check(np.array_equal(gi, wi) and gv.dtype == wv.dtype
+                  and np.array_equal(gv.view(np.uint8), wv.view(np.uint8)),
+                  f"path_mesh_serve stream {label}: words differ")
+        streams[label] = {"vocab": vocab, "mesh": mesh,
+                          "single_wall_s": single_wall,
+                          "mesh_wall_s": mesh_wall, "launches": launches}
+    out["stream"] = streams
+
+    # 7. the CLI (cli_runs): --mesh-docs 1 / --mesh-shards 1 = unsharded
+    # (the plain query in process, the plain stream path_stream's)
+    from tfidf_tpu_torch import cli as tcli
+    t0 = time.perf_counter()
+    rc, plain_query = _quiet(tcli.main, query_args(small, queries))
+    query_s = time.perf_counter() - t0
+    check(rc == 0 and "query: " in plain_query, "path_mesh_serve cli: the "
+          "plain query failed")
+    for label, want in (("query_mesh_1", plain_query.encode()),
+                        ("stream_mesh_1", stream_cli)):
+        check(cli[label]["bytes"] == want and len(want) > 0,
+              f"path_mesh_serve cli: {label} differs from the plain run")
+    a, b = serve_lines(cli["serve_mesh_1"]), serve_lines(cli["serve_single"])
+    for i in range(SERVE_CLI_QUERIES):
+        check(a.get(i, {}).get("results") == b.get(i, {}).get("results")
+              and a[i]["results"], f"path_mesh_serve cli: serve "
+              f"--mesh-shards 1 line {i} differs")
+    check("mesh=1" in cli["serve_mesh_1"]["stderr"]
+          and a["op_devmon"]["devmon"]["shards"]["n_shards"] == 1,
+          "path_mesh_serve cli: serve --mesh-shards 1 did not shard")
+    out["cli"] = {label: {"seconds": cli[label]["seconds"],
+                          "bytes": len(cli[label]["bytes"])}
+                  for label in ("query_mesh_1", "stream_mesh_1",
+                                "serve_single", "serve_mesh_1")}
+    out["cli"].update(plain_query_in_process_s=query_s, equal=True)
+
+    # 8. two gloo ranks on the one card
+    _build.build()  # built already; the ranks load the libraries
+    _build.build_host()
+    out["gloo_ranks"] = gloo_ranks(T, ingest, small, total)
+    del sharded
+    emit({"phase": "path_mesh_serve", "shards": MESH_SERVE_SHARDS,
+          "devices": [str(d) for d in plan.devices], "k": RETR_K, **out,
+          "bit_equal": True, "seconds": time.perf_counter() - t_phase,
+          "ok": True})
+
+
 # --- path_serve: TfidfServer over the retrieval index, cli serve ------
 
 SERVE_THREADS = 8         # path_serve: client threads
@@ -2733,7 +3269,17 @@ def serve_breakdown(r, requests) -> dict:
             "probe_after_load_device_events": len(probe)}
 
 
-def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total):
+def serve_lines(run) -> dict:
+    """A ``cli serve`` run's response lines, by their "id"."""
+    by_id = {}
+    for line in run["bytes"].decode().splitlines():
+        if line.strip():
+            resp = json.loads(line)
+            by_id[resp.get("id")] = resp
+    return by_id
+
+
+def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total, cli):
     """TfidfServer over the retrieval index under concurrent load at
     pipeline depth 1 and 2 (every answer equal to a direct search),
     the cache, admission and a swap to the 32,768-doc directory (B4), a
@@ -2934,27 +3480,10 @@ def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total):
                         "epoch": seg.epoch, "checks": checks,
                         "launches": seg_launches}
 
-    # step 6: cli serve in a subprocess, no --device: it serves on cuda
-    lines = [json.dumps({"id": i, "queries": [queries[i]], "k": RETR_K})
-             for i in range(SERVE_CLI_QUERIES)]
-    lines += [json.dumps({"id": f"op_{op}", "op": op})
-              for op in ("healthz", "readyz", "metrics", "devmon")]
-    lines.append(json.dumps({"op": "shutdown"}))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tfidf_tpu_torch.cli", "serve", "--input",
-         small_dir, "--doc-len", str(DOC_LEN), "-k", str(RETR_K),
-         "--canary-period-ms", "0"],
-        input="\n".join(lines) + "\n", capture_output=True, text=True,
-        timeout=600, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
-    cli_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"path_serve: cli serve exited "
-          f"{proc.returncode}: {proc.stderr[-2000:]}")
-    by_id = {}
-    for line in proc.stdout.splitlines():
-        if line.strip():
-            resp = json.loads(line)
-            by_id[resp.get("id")] = resp
+    # step 6: cli serve in a subprocess, no --device: it served on cuda
+    # (cli_runs, alongside the other CLI runs)
+    by_id = serve_lines(cli["serve_single"])
+    cli_s = cli["serve_single"]["seconds"]
     want_v, want_i = new.search(queries[:SERVE_CLI_QUERIES], k=RETR_K)
     for i in range(SERVE_CLI_QUERIES):
         got = by_id.get(i, {}).get("results")
@@ -2979,13 +3508,15 @@ def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total):
           "path_serve: cli serve recompiled after warm-up")
     check(cli_dev["devices"][0].get("bytes_in_use", 0) > 0,
           "path_serve: cli serve's devmon read no bytes")
-    out["cli"] = {"seconds": cli_s, "health": health["status"],
+    out["cli"] = {"seconds": cli_s,
+                  "concurrent_cli_runs": cli["serve_single"]["concurrent"],
+                  "health": health["status"],
                   "fingerprint": metrics["fingerprint"],
                   "requests": metrics["requests"],
                   "latency_s": metrics["latency_s"],
                   "devmon_bytes_in_use":
                       cli_dev["devices"][0]["bytes_in_use"],
-                  "stderr_tail": proc.stderr[-400:]}
+                  "stderr_tail": cli["serve_single"]["stderr"][-400:]}
     emit({"phase": "path_serve", "docs": n, "k": RETR_K,
           "threads": SERVE_THREADS, "requests_per_thread": SERVE_REQUESTS,
           "mix": ["tfidf", "bm25", "tfidf+id_range"], **out,
@@ -3171,19 +3702,21 @@ def main() -> int:
         r, rcfg, queries = path_retrieval(T, K, big, big_docs, total)
         from tfidf_tpu_torch.models import retrieval as R
         b6_kernel_cases(K, R, r, rcfg, queries, summary)
-        path_stream(T, K, small, big_docs, rg.df, total)
-        path_segmented(T, K, big_docs, queries, total)
+        stream_cli = path_stream(T, K, small, big_docs, rg.df, total)
+        seg_idx = path_segmented(T, K, big_docs, queries, total)
         path_exact_terms(T, K, FT, ingest, big, small, total)
         chargram = path_chargram(T, K, FT, total)
-        # the three CLI runs the next two phases check, run at once
-        cli = cli_runs(small, {"single": [], "mesh_111": ["--mesh", "1,1,1"],
-                               "workers_4": ["--ingest-workers", "4"]})
+        # the CLI runs the last four phases check, run at once
+        cli = cli_runs(cli_commands(small, queries))
         path_mesh(T, K, ingest, corpus, gold, big, small, rg, streamed,
                   chargram, total, cli)
         path_multiprocess(T, K, _build, big, rg, total, cli)
+        path_mesh_serve(T, K, _build, ingest, r, rcfg, queries, big_docs,
+                        seg_idx, small, corpus, total, cli, stream_cli)
+        del seg_idx
         # last: its profile of a multi-threaded load runs after every
         # other profile of the script
-        path_serve(T, K, r, rcfg, queries, small, corpus, total)
+        path_serve(T, K, r, rcfg, queries, small, corpus, total, cli)
         del r
 
     sources = {"fused_score_topk": ("tfidf_tpu_torch/csrc/score_topk.cu",

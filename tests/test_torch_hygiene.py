@@ -8,8 +8,9 @@
   device named they raise instead of running on the CPU.
 * A kernel wrapper handed CUDA tensors launches its kernel or raises; it
   is never served by the plain CPU version.
-* What the slice does not cover raises NotImplementedError naming the
-  ROADMAP item that brings it.
+* What the port does not cover yet raises NotImplementedError naming
+  the ROADMAP item that brings it. A case whose item has landed keeps
+  its id and now checks the ported feature against the JAX package.
 """
 
 import ast
@@ -90,7 +91,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tfidf_tpu_torch/parallel/collectives.py",
                  "tfidf_tpu_torch/parallel/longdoc.py",
                  "tfidf_tpu_torch/parallel/sharded.py",
-                 "tfidf_tpu_torch/parallel/multihost.py"):
+                 "tfidf_tpu_torch/parallel/multihost.py",
+                 # the search side of the parallel paths
+                 "tfidf_tpu_torch/parallel/serving.py"):
         assert path in rel
     offenders = []
     for path in files:
@@ -421,25 +424,47 @@ class TestNotPortedYet:
                             device="cpu").run_packed(RaggedBatch())
 
     def test_stream_mesh(self, toy_corpus_dir, tmp_path):
+        # Ported now (ROADMAP A9b): a plan runs the docs-sharded stream
+        # and fit (equal to one device's), and cli stream --mesh-docs
+        # writes the JAX CLI's bytes.
+        from tfidf_tpu.cli import main as jax_main
         from tfidf_tpu_torch.models import TfidfVectorizer
+        from tfidf_tpu_torch.parallel import MeshPlan
         from tfidf_tpu_torch.streaming import StreamingTfidf
         cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED, topk=3)
-        for make in (StreamingTfidf, TfidfVectorizer):
-            with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-                make(cfg, plan=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-            cli.main(["stream", "--input", toy_corpus_dir, "--output",
-                      str(tmp_path / "o.txt"), "--mesh-docs", "2",
-                      "--device", "cpu"])
+        corpus = T.discover_corpus(toy_corpus_dir)
+        plan = MeshPlan.create(docs=2, device="cpu")
+        assert StreamingTfidf(cfg, plan=plan).plan is plan
+        got = TfidfVectorizer(cfg, plan=plan).fit_transform(corpus)
+        want = TfidfVectorizer(cfg, device="cpu").fit_transform(corpus)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        args = ["stream", "--input", toy_corpus_dir, "--batch-docs", "4",
+                "--topk", "3", "--mesh-docs", "2"]
+        ours, theirs = str(tmp_path / "o.txt"), str(tmp_path / "j.txt")
+        assert cli.main(args + ["--output", ours, "--device", "cpu"]) == 0
+        assert jax_main(args + ["--output", theirs]) == 0
+        assert open(ours, "rb").read() == open(theirs, "rb").read()
 
-    def test_search_mesh(self, toy_corpus_dir):
-        # The docs-sharded search side is ROADMAP A9b.
-        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-            T.TfidfRetriever(T.PipelineConfig(vocab_mode=VocabMode.HASHED),
-                             plan=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-            cli.main(["query", "--input", toy_corpus_dir, "--query", "a",
-                      "--mesh-docs", "2", "--device", "cpu"])
+    def test_search_mesh(self, toy_corpus_dir, capsys):
+        # Ported now (ROADMAP A9b): TfidfRetriever(plan=) and cli query
+        # --mesh-docs answer as the JAX package does.
+        from tfidf_tpu.cli import main as jax_main
+        from tfidf_tpu_torch.parallel import MeshPlan
+        cfg = T.PipelineConfig(vocab_mode=VocabMode.HASHED)
+        r = T.TfidfRetriever(cfg, plan=MeshPlan.create(docs=2, device="cpu"))
+        r.index_dir(toy_corpus_dir)
+        single = T.TfidfRetriever(cfg, device="cpu").index_dir(
+            toy_corpus_dir)
+        for a, b in zip(r.search(["tpu mesh", "kernel"], k=3),
+                        single.search(["tpu mesh", "kernel"], k=3)):
+            np.testing.assert_array_equal(a, b)
+        args = ["query", "--input", toy_corpus_dir, "--query", "tpu mesh",
+                "--query", "kernel psum", "-k", "3", "--mesh-docs", "2"]
+        assert cli.main(args + ["--device", "cpu"]) == 0
+        ours = capsys.readouterr().out
+        assert jax_main(args) == 0
+        assert ours == capsys.readouterr().out and "query: kernel" in ours
 
     @pytest.mark.parametrize("member", ["MetricsRegistry", "HealthMonitor",
                                         "DeviceMonitor", "SloTracker"])
@@ -462,10 +487,30 @@ class TestNotPortedYet:
         (["--replica-timeout-s", "5"], "ROADMAP A8b"),
         pytest.param(["--mesh-shards", "2"], "ROADMAP A9b",
                      id="flags2-ROADMAP A9")])
-    def test_serve_cli_options(self, toy_corpus_dir, flags, item):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["serve", "--input", toy_corpus_dir, "--device", "cpu",
-                      *flags])
+    def test_serve_cli_options(self, toy_corpus_dir, flags, item,
+                               monkeypatch, capsys):
+        argv = ["serve", "--input", toy_corpus_dir, "--device", "cpu",
+                *flags]
+        if item == "ROADMAP A8b":
+            with pytest.raises(NotImplementedError, match=item):
+                cli.main(argv)
+            return
+        # Ported now (ROADMAP A9b): serve --mesh-shards serves the index
+        # doc-sharded, with the unsharded server's answers.
+        import io
+        import json
+        lines = [json.dumps({"id": 1, "queries": ["tpu mesh", "kernel"],
+                             "k": 3}), json.dumps({"op": "shutdown"})]
+        answers = []
+        for extra in ([], flags):
+            monkeypatch.setattr("sys.stdin",
+                                io.StringIO("\n".join(lines) + "\n"))
+            assert cli.main(argv[:5] + extra) == 0
+            out = capsys.readouterr()
+            answers.append([json.loads(x)["results"]
+                            for x in out.out.splitlines() if x])
+        assert "mesh=2" in out.err
+        assert answers[0] == answers[1] and answers[0][0][0]
 
     @pytest.mark.parametrize("kw,item", [
         ({"replicas": 2, "snapshot_dir": "snap"}, "ROADMAP A8b"),
@@ -473,11 +518,22 @@ class TestNotPortedYet:
                      id="kw1-ROADMAP A9")])
     def test_server_options(self, toy_corpus_dir, kw, item):
         from tfidf_tpu_torch.config import ServeConfig
+        from tfidf_tpu_torch.parallel import MeshShardedRetriever
         from tfidf_tpu_torch.serve import TfidfServer
         r = T.TfidfRetriever(T.PipelineConfig(vocab_mode=VocabMode.HASHED),
                              device="cpu").index_dir(toy_corpus_dir)
-        with pytest.raises(NotImplementedError, match=item):
-            TfidfServer(r, ServeConfig(**kw))
+        if item == "ROADMAP A8b":
+            with pytest.raises(NotImplementedError, match=item):
+                TfidfServer(r, ServeConfig(**kw))
+            return
+        # Ported now (ROADMAP A9b): the server shards the index
+        with TfidfServer(r, ServeConfig(**kw)) as srv:
+            _, installed = srv.current_index()
+            assert isinstance(installed, MeshShardedRetriever)
+            assert installed.n_shards == kw["mesh_shards"]
+            for a, b in zip(srv.search(["tpu mesh"], k=3, timeout=30),
+                            r.search(["tpu mesh"], k=3)):
+                np.testing.assert_array_equal(a, b)
 
     # Every option is ported now: each runs and equals the JAX
     # package's ingest with the same option (the mesh plan: 2 shards on

@@ -28,6 +28,7 @@ import json
 import os
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,6 +57,7 @@ from tfidf_tpu_torch.interop import index_arrays_from_numpy
 from tfidf_tpu_torch.models import retrieval as tret
 from tfidf_tpu_torch.ops import sparse as tsp
 from tfidf_tpu_torch.ops import topk as ttk
+from tfidf_tpu_torch.parallel import MeshPlan as TMesh
 from tfidf_tpu_torch.parity import compare_search
 from tfidf_tpu_torch.scoring import family as tfam
 from tfidf_tpu_torch.scoring import filters as tfil
@@ -538,6 +540,108 @@ class TestRetrieverVsJax:
         assert torch.equal(a._weights, b._weights) and a.names == b.names
 
 
+# --- the docs-sharded retriever (plan=) -----------------------------------
+
+def _plan(n):
+    return TMesh.create(docs=n, device="cpu")
+
+
+class TestPlanRetriever:
+    """``TfidfRetriever(plan=)`` against the JAX package's
+    (tests/test_retrieval.py::TestSharded) and, bit for bit, against the
+    port's single-device retriever."""
+
+    @pytest.mark.parametrize("shards", [1, 2, 3, 4])
+    @pytest.mark.parametrize("n_docs", [5, 48])
+    def test_matches_single_device_and_jax(self, shards, n_docs):
+        from tfidf_tpu.parallel import MeshPlan as JMesh
+        jc, tc = _cfgs()
+        corpus = T.Corpus(names=NAMES[:n_docs], docs=DOCS[:n_docs])
+        single = T.TfidfRetriever(tc, device="cpu").index(corpus)
+        plan_r = T.TfidfRetriever(tc, plan=_plan(shards)).index(corpus)
+        assert plan_r.device == torch.device("cpu")
+        assert len(plan_r._blocks) == shards
+        assert plan_r._blocks[0][0].shape[0] * shards \
+            == -(-n_docs // shards) * shards
+        jr = JRetriever(jc, plan=JMesh.create(
+            docs=shards, devices=jax.devices()[:shards])).index(
+            JCorpus(names=NAMES[:n_docs], docs=DOCS[:n_docs]))
+        queries = _queries(7, seed=shards) + ["", "zzz unknown"]
+        for k in (1, 4, n_docs + 3):
+            got = plan_r.search(queries, k=k)
+            # the caller-visible width is min(k, num_docs) on every path
+            assert got[0].shape == (len(queries), min(k, n_docs))
+            _assert_same_bits(got, single.search(queries, k=k))
+            _assert_agree(got, jr.search(queries, k=k))
+        # the index itself: row-local, so each shard holds the single
+        # device's rows bit for bit
+        ids = torch.cat([b[0] for b in plan_r._blocks])[:n_docs]
+        w = torch.cat([b[1] for b in plan_r._blocks])[:n_docs]
+        assert torch.equal(ids, single._ids)
+        assert torch.equal(w, single._weights)
+        assert torch.equal(plan_r._idf, single._idf)
+
+    def test_async_and_untiled_paths(self, monkeypatch):
+        _, tc = _cfgs()
+        corpus = T.Corpus(names=NAMES, docs=DOCS)
+        plan_r = T.TfidfRetriever(tc, plan=_plan(3)).index(corpus)
+        queries = _queries(70, seed=9)
+        want = plan_r.search(queries, k=6)
+        _assert_same_bits(plan_r.search_async(queries, k=6).materialize(),
+                          want)
+        monkeypatch.setenv("TFIDF_TPU_SCORE_TILING", "off")
+        _assert_same_bits(plan_r.search(queries, k=6), want)
+        monkeypatch.setenv("TFIDF_TPU_SCORE_TILING", "on")
+        monkeypatch.setenv("TFIDF_TPU_QUERY_BLOCK", "5")
+        _assert_same_bits(plan_r.search(queries, k=6), want)
+
+    def test_index_dir_takes_the_batch_packing(self, tmp_path):
+        # under a plan index_dir ignores doc_len (no truncation, no
+        # native loader), as the JAX package's does
+        for i, doc in enumerate(DOCS[:12]):
+            (tmp_path / f"doc{i + 1}").write_bytes(doc)
+        _, tc = _cfgs()
+        a = T.TfidfRetriever(tc, plan=_plan(2)).index_dir(str(tmp_path),
+                                                          doc_len=2)
+        b = T.TfidfRetriever(tc, device="cpu").index_dir(str(tmp_path))
+        queries = _queries(5, seed=3)
+        _assert_same_bits(a.search(queries, k=4), b.search(queries, k=4))
+
+    def test_requires_docs_only_mesh(self):
+        _, tc = _cfgs()
+        for shape in ({"docs": 2, "vocab": 2}, {"docs": 2, "seq": 2}):
+            with pytest.raises(ValueError, match="docs axis only"):
+                T.TfidfRetriever(tc, plan=TMesh.create(
+                    **shape, device="cpu"))
+
+    @pytest.mark.parametrize("kw", [{"scorer": "bm25"},
+                                    {"filter": {"id_range": [0, 5]}}])
+    def test_default_scorer_only(self, kw, tmp_path):
+        _, tc = _cfgs()
+        plan_r = T.TfidfRetriever(tc, plan=_plan(2)).index(
+            T.Corpus(names=NAMES, docs=DOCS))
+        with pytest.raises(ValueError, match="default scorer only"):
+            plan_r.search(["term01"], k=3, **kw)
+
+    def test_single_device_only_operations(self, tmp_path):
+        _, tc = _cfgs()
+        corpus = T.Corpus(names=NAMES, docs=DOCS)
+        plan_r = T.TfidfRetriever(tc, plan=_plan(2)).index(corpus)
+        with pytest.raises(ValueError, match="single-device"):
+            plan_r.snapshot(str(tmp_path / "snap"))
+        with pytest.raises(ValueError, match="single-device"):
+            T.TfidfRetriever(tc, plan=_plan(2)).index_fields(
+                [("body", corpus, 1.0)])
+        with pytest.raises(ValueError, match="default scorer only"):
+            plan_r.scorer_face("bm25")
+        # no query slab under a plan (tests/test_queryslab.py)
+        plan_r.query_slab = True
+        plan_r.search(["term01 term02"], k=3)
+        assert plan_r._slab is None
+        # the census sees every shard's block
+        assert len(plan_r.index_arrays()) == 1 + 3 * 2
+
+
 # --- within the port, bit for bit ----------------------------------------
 
 class TestWithinPort:
@@ -789,14 +893,54 @@ class TestCliQuery:
             assert [n for n, _ in ra] == [n for n, _ in rb]
             assert all(abs(a - b) <= 1e-6 for (_, a), (_, b) in zip(ra, rb))
 
-    def test_mesh_docs_names_a9(self, toy_corpus_dir):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-            tcli.main(["query", "--input", toy_corpus_dir, "--query", "a",
-                       "--mesh-docs", "2", "--device", "cpu"])
+    def test_mesh_docs_names_a9(self, tmp_path, capsys):
+        # Ported now (ROADMAP A9b): --mesh-docs N indexes block-sharded
+        # over N shards (CPU shards here, the JAX package's first N
+        # forced devices there) and prints the JAX CLI's results; the
+        # unsharded CLI's bit for bit; --doc-len with a mesh exits 2.
+        from tfidf_tpu.cli import main as jax_main
+        for i, doc in enumerate(DOCS[:20]):
+            (tmp_path / f"doc{i + 1}").write_bytes(doc)
+        args = ["query", "--input", str(tmp_path), "-k", "4"]
+        for q in _queries(6, seed=22) + ["", "zzz unknown"]:
+            args += ["--query", q]
+        assert tcli.main(args + ["--device", "cpu"]) == 0
+        plain = capsys.readouterr().out
+        for n in ("3", "0"):
+            assert tcli.main(args + ["--mesh-docs", n, "--device", "cpu"]) \
+                == 0
+            assert capsys.readouterr().out == plain
+        assert jax_main(args + ["--mesh-docs", "3"]) == 0
+        theirs = _parse_query_output(capsys.readouterr().out)
+        ours = _parse_query_output(plain)
+        assert len(ours) == len(theirs) == 8
+        for (qa, ra), (qb, rb) in zip(ours, theirs):
+            assert qa == qb
+            assert [n for n, _ in ra] == [n for n, _ in rb]
+            assert all(abs(a - b) <= 1e-6 for (_, a), (_, b) in zip(ra, rb))
+        assert tcli.main(args + ["--mesh-docs", "2", "--doc-len", "16",
+                                 "--device", "cpu"]) == 2
+        err = capsys.readouterr().err
+        assert "single-device; drop --mesh-docs" in err
+        assert jax_main(args + ["--mesh-docs", "2", "--doc-len", "16"]) == 2
+        assert capsys.readouterr().err == err
 
     def test_plan_names_a9(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-            T.TfidfRetriever(_cfgs()[1], plan=object(), device="cpu")
+        # Ported now (ROADMAP A9b): TfidfRetriever(plan=) equals the JAX
+        # package's plan retriever and the port's single device.
+        from tfidf_tpu.parallel import MeshPlan as JMesh
+        jc, tc = _cfgs()
+        corpus = T.Corpus(names=NAMES, docs=DOCS)
+        plan_r = T.TfidfRetriever(tc, plan=TMesh.create(
+            docs=4, device="cpu")).index(corpus)
+        jr = JRetriever(jc, plan=JMesh.create(
+            docs=4, devices=jax.devices()[:4])).index(
+            JCorpus(names=NAMES, docs=DOCS))
+        queries = _queries(9, seed=4)
+        got = plan_r.search(queries, k=5)
+        _assert_agree(got, jr.search(queries, k=5))
+        _assert_same_bits(got, T.TfidfRetriever(tc, device="cpu")
+                          .index(corpus).search(queries, k=5))
 
     def test_exact_vocab_refused(self):
         with pytest.raises(ValueError, match="HASHED"):

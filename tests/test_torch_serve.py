@@ -693,8 +693,22 @@ class TestTfidfServer:
         ({"replicas": 2, "snapshot_dir": "snap"}, "ROADMAP A8b")])
     def test_not_ported_options_raise(self, retriever, kw, item):
         cfg = ServeConfig(**kw)          # the dataclass accepts them
-        with pytest.raises(NotImplementedError, match=item):
-            TfidfServer(retriever, cfg)
+        if item == "ROADMAP A8b":
+            with pytest.raises(NotImplementedError, match=item):
+                TfidfServer(retriever, cfg)
+            return
+        # Ported now (ROADMAP A9b): the index is served doc-sharded (0:
+        # every device, one CPU shard here), answers unchanged
+        from tfidf_tpu_torch.parallel import MeshShardedRetriever
+        with TfidfServer(retriever, cfg) as srv:
+            _, installed = srv.current_index()
+            assert isinstance(installed, MeshShardedRetriever)
+            assert installed.n_shards == (kw["mesh_shards"] or 1)
+            assert installed.parity_oracle() is retriever
+            for scorer in (None, "bm25"):
+                assert_identical(
+                    srv.search(QUERIES, k=3, scorer=scorer, timeout=T),
+                    retriever.search(QUERIES, k=3, scorer=scorer))
 
     def test_set_scorer_bumps_epoch_and_serves_it(self, retriever):
         with TfidfServer(retriever, quick_cfg()) as srv:

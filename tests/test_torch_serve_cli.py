@@ -10,9 +10,12 @@ tfidf_tpu.cli serve``, in process with stdin monkeypatched, on the CPU.
   ``set_scorer``, ``shutdown``; bad lines get error lines.
 * ``--snapshot-dir`` restores a snapshot written by either package's
   server and serves the same answers.
+* ``--mesh-shards N`` (0 = every device) serves the index doc-sharded
+  with the JAX CLI's answers (the JAX side on its forced CPU devices);
+  the devmon op reports the shards.
 * Without ``--device`` and without a GPU the command raises "no CUDA
-  device available"; ``--mesh-shards`` raises naming ROADMAP A9b and
-  ``--replicas`` / ``--replica-timeout-s`` ROADMAP A8b.
+  device available"; ``--replicas`` / ``--replica-timeout-s`` raise
+  naming ROADMAP A8b.
 """
 
 import io
@@ -282,9 +285,32 @@ def test_without_device_and_without_gpu_raises(corpus_dir, monkeypatch,
     (["--replica-timeout-s", "5"], "ROADMAP A8b")])
 def test_not_ported_flags_raise(corpus_dir, monkeypatch, capsys, flag,
                                 item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port([json.dumps({"op": "shutdown"})],
-              ["--input", corpus_dir, *flag], monkeypatch, capsys)
+    if item == "ROADMAP A8b":
+        with pytest.raises(NotImplementedError, match=item):
+            _port([json.dumps({"op": "shutdown"})],
+                  ["--input", corpus_dir, *flag], monkeypatch, capsys)
+        return
+    # Ported now (ROADMAP A9b): --mesh-shards serves doc-sharded with the
+    # JAX CLI's answers; the devmon op reports the shards.
+    lines = [json.dumps({"id": i, **req})
+             for i, req in enumerate(REQUESTS["tfidf"] + REQUESTS["bm25"]
+                                     + REQUESTS["filters"])]
+    lines += [json.dumps({"id": "dev", "op": "devmon"}),
+              json.dumps({"op": "shutdown"})]
+    argv = ["--input", corpus_dir, *BASE, *flag]
+    rc_t, got, err = _port(lines, argv, monkeypatch, capsys)
+    rc_j, want, _ = _jax(lines, argv, monkeypatch, capsys)
+    assert rc_t == rc_j == 0
+    shards = int(flag[1]) or 1  # 0: every device, one CPU shard here
+    assert f"mesh={flag[1]}" in err
+    got, want = _by_id(got), _by_id(want)
+    assert got["dev"]["devmon"]["shards"]["n_shards"] == shards
+    for i in range(len(lines) - 2):
+        a, b = got[i], want[i]
+        assert "results" in a and "results" in b, (a, b)
+        cmp = compare_search(*_as_search(a["results"]),
+                             *_as_search(b["results"]), val_ulps=4)
+        assert cmp["ok"], (a, b, cmp)
 
 
 def _free_port():

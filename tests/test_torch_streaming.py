@@ -19,11 +19,20 @@ Contracts, as the port states them:
   ``fit_transform`` agree with the JAX package's; ``idf_`` is exact in
   float64.
 * ``cli stream`` writes the JAX CLI's ``output.txt`` bytes, with and
-  without a kill after a minibatch and ``--resume``.
+  without a kill after a minibatch and ``--resume``, and with
+  ``--mesh-docs``.
+* ``StreamingTfidf(plan=)`` (CPU shards against the JAX package's forced
+  CPU devices) on docs, docs x vocab, docs x seq x vocab and vocab
+  meshes, both wires: DF exact against both, words bit for bit against
+  the port's single-device stream, within ``compare_topk`` against the
+  JAX package; the engine doctrine (an explicit sparse engine on a seq
+  or vocab mesh raises, a defaulted one takes dense) and the padded
+  vocab's state dict are the JAX package's.
 """
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -34,6 +43,7 @@ from tfidf_tpu.config import PipelineConfig as JConfig
 from tfidf_tpu.config import VocabMode as JVocab
 from tfidf_tpu.io.corpus import Corpus as JCorpus
 from tfidf_tpu.models import TfidfVectorizer as JVectorizer
+from tfidf_tpu.parallel import MeshPlan as JMesh
 from tfidf_tpu.streaming import StreamingTfidf as JStream
 
 from tfidf_tpu_torch import checkpoint as tckpt
@@ -42,6 +52,7 @@ from tfidf_tpu_torch.config import PipelineConfig as TConfig
 from tfidf_tpu_torch.config import VocabMode as TVocab
 from tfidf_tpu_torch.io.corpus import Corpus as TCorpus
 from tfidf_tpu_torch.models import TfidfVectorizer as TVectorizer
+from tfidf_tpu_torch.parallel import MeshPlan as TMesh
 from tfidf_tpu_torch.parity import compare_topk
 from tfidf_tpu_torch.streaming import StreamingTfidf as TStream
 
@@ -302,12 +313,134 @@ def test_resume_equals_uninterrupted(tmp_path):
 def test_exact_vocab_rejected_and_plan_not_ported():
     with pytest.raises(ValueError, match="HASHED"):
         TStream(TConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        TStream(_configs()[1], plan=object(), device="cpu")
     with pytest.raises(ValueError, match="HASHED"):
         TVectorizer(TConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        TVectorizer(_configs()[1], plan=object(), device="cpu")
+    # Ported now (ROADMAP A9b): a plan runs the docs-sharded stream and
+    # fit, equal to one device's (the parity cases below).
+    plan = TMesh.create(docs=2, device="cpu")
+    cfg = _configs(topk=3)[1]
+    assert TStream(cfg, plan=plan).plan is plan
+    names, docs = _minibatches()[0]
+    got = TVectorizer(cfg, plan=plan).fit_transform(TCorpus(names, docs))
+    want = TVectorizer(cfg, device="cpu").fit_transform(TCorpus(names, docs))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+# --- StreamingTfidf(plan=): the docs-sharded stream --------------------
+
+MESHES = {"docs4": {"docs": 4}, "docs3": {"docs": 3},
+          "docs2_vocab2": {"docs": 2, "vocab": 2},
+          "docs2_seq2_vocab2": {"docs": 2, "seq": 2, "vocab": 2},
+          "vocab3": {"docs": 1, "vocab": 3}}
+
+
+def _mesh_pair(mesh, **kw):
+    """The JAX mesh stream (its forced CPU devices) and the port's (CPU
+    shards) at one config; the port's single-device stream at the engine
+    the mesh resolved."""
+    import dataclasses
+    jcfg, tcfg = _configs(**kw)
+    n = int(np.prod(list(mesh.values())))
+    jplan = JMesh.create(**mesh, devices=jax.devices()[:n])
+    tplan = TMesh.create(**mesh, device="cpu")
+    js, ts = JStream(jcfg, jplan), TStream(tcfg, tplan)
+    assert ts._engine == js._engine
+    single = TStream(dataclasses.replace(tcfg, engine=ts._engine),
+                     device="cpu")
+    return js, ts, single
+
+
+@pytest.mark.parametrize("mesh", list(MESHES), ids=list(MESHES))
+@pytest.mark.parametrize("engine", [None, "dense"])
+@pytest.mark.parametrize("wire", ["padded", "ragged"])
+def test_mesh_stream_matches_single_and_jax(mesh, engine, wire):
+    js, ts, single = _mesh_pair(MESHES[mesh], engine=engine, topk=4)
+    packed = []
+    for names, docs in _minibatches(seed=3):
+        jb, tb = _pack_both(js, ts, names, docs, wire, 12)
+        sb = (single.pack_ragged if wire == "ragged" else single.pack)(
+            TCorpus(names=names, docs=docs), fixed_len=12)
+        js.update(jb)
+        ts.update(tb)
+        single.update(sb)
+        np.testing.assert_array_equal(ts.df(), single.df())
+        np.testing.assert_array_equal(ts.df(), js.df())
+        assert ts.docs_seen == single.docs_seen == js.docs_seen
+        packed.append((jb, tb, sb, len(names)))
+    assert ts.state_dict()["df"].shape == (ts._vocab,)
+    for jb, tb, sb, n in packed:
+        tv, ti = ts.score(tb)
+        sv, si = single.score(sb)
+        # bit for bit against one device (the rows past n pad the mesh)
+        np.testing.assert_array_equal(ti[:n], si[:n])
+        np.testing.assert_array_equal(tv[:n].view(np.uint16),
+                                      sv[:n].view(np.uint16))
+        jv, ji = (np.asarray(x)[:n] for x in js.score(jb))
+        rep = compare_topk(ti[:n], tv[:n], ji, np.asarray(jv, np.float32),
+                           token_ids=_padded(sb).token_ids,
+                           lengths=_padded(sb).lengths, df=ts.df(),
+                           num_docs=ts.docs_seen, wire_dtype=np.float16)
+        assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("mesh", ["docs4", "docs2_vocab2"])
+def test_mesh_stream_pair_wire_and_dense_scores(mesh):
+    # the pair wire returns tensors; topk=None the [D, V_padded] scores
+    js, ts, single = _mesh_pair(MESHES[mesh], topk=4, result_wire="pair")
+    names, docs = _minibatches(seed=4)[1]
+    tb = ts.pack(TCorpus(names=names, docs=docs))
+    ts.update(tb)
+    single.update(single.pack(TCorpus(names=names, docs=docs)))
+    n = len(names)
+    tv, ti = ts.score(tb)
+    sv, si = single.score(single.pack(TCorpus(names=names, docs=docs)))
+    assert torch.equal(ti[:n], si) and torch.equal(tv[:n], sv)
+    _, tcfg = _configs()
+    plan = TMesh.create(**MESHES[mesh], device="cpu")
+    dense_mesh = TStream(tcfg, plan)
+    dense_single = TStream(tcfg, device="cpu")
+    dense_mesh.update(dense_mesh.pack(TCorpus(names=names, docs=docs)))
+    dense_single.update(dense_single.pack(TCorpus(names=names, docs=docs)))
+    got = dense_mesh.score(dense_mesh.pack(TCorpus(names=names, docs=docs)))
+    want = dense_single.score(dense_single.pack(TCorpus(names=names,
+                                                        docs=docs)))
+    assert got.shape[1] == dense_mesh._vocab
+    assert torch.equal(got[:n, :tcfg.vocab_size], want)
+
+
+def test_mesh_vocab_pads_and_state_dict_crosses():
+    # V 250 over 3 vocab shards pads to 252, as the JAX package pads it
+    js, ts, single = _mesh_pair(MESHES["vocab3"], vocab_size=250, topk=3,
+                                engine="dense")
+    assert ts._vocab == js._vocab == 252
+    names, docs = _minibatches(seed=5)[0]
+    ts.update(ts.pack(TCorpus(names=names, docs=docs)))
+    js.update(js.pack(JCorpus(names=names, docs=docs)))
+    assert ts.df().shape == (250,)
+    state = ts.state_dict()
+    assert state["df"].shape == (252,)
+    np.testing.assert_array_equal(state["df"],
+                                  np.asarray(js.state_dict()["df"]))
+    back = TStream(_configs(vocab_size=250, topk=3, engine="dense")[1],
+                   TMesh.create(docs=1, vocab=3, device="cpu"))
+    back.load_state(js.state_dict())
+    np.testing.assert_array_equal(back.df(), ts.df())
+    with pytest.raises(ValueError, match="df shape"):
+        back.load_state({"df": np.zeros(250, np.int32), "docs_seen": 0})
+
+
+def test_mesh_engine_doctrine():
+    # an explicit engine="sparse" on a seq or vocab mesh raises; a
+    # defaulted one falls back to dense (capability, not preference)
+    _, tcfg = _configs(engine="sparse", topk=4)
+    for shape in ({"docs": 2, "vocab": 2}, {"docs": 2, "seq": 2}):
+        plan = TMesh.create(**shape, device="cpu")
+        with pytest.raises(ValueError, match="docs axis only"):
+            TStream(tcfg, plan)
+        assert TStream(_configs(topk=4)[1], plan)._engine == "dense"
+    assert TStream(_configs(topk=4)[1],
+                   TMesh.create(docs=4, device="cpu"))._engine == "sparse"
 
 
 def test_entry_points_without_gpu_raise(monkeypatch):
@@ -480,8 +613,20 @@ def test_cli_stream_options(stream_dir, tmp_path, monkeypatch, capsys):
     out = str(tmp_path / "t.txt")
     base = ["stream", "--input", stream_dir, "--output", out,
             "--vocab-size", "256"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        tcli.main(base + ["--mesh-docs", "2", "--device", "cpu"])
+    # --mesh-docs (ROADMAP A9b, ported now): the same bytes as the JAX
+    # CLI's and as one device's; --batch-docs not a multiple exits 2
+    jout, plain = str(tmp_path / "j.txt"), str(tmp_path / "p.txt")
+    mesh = base + ["--batch-docs", "8", "--topk", "3"]
+    assert tcli.main([*mesh[:4], plain, *mesh[5:], "--device", "cpu"]) == 0
+    for n in ("2", "4", "0"):
+        assert tcli.main(mesh + ["--mesh-docs", n, "--device", "cpu"]) == 0
+        assert open(out, "rb").read() == open(plain, "rb").read()
+    assert jmain([*mesh[:4], jout, *mesh[5:], "--mesh-docs", "4"]) == 0
+    assert open(jout, "rb").read() == open(plain, "rb").read()
+    capsys.readouterr()
+    assert tcli.main(mesh[:-4] + ["--batch-docs", "7", "--mesh-docs", "2",
+                                  "--device", "cpu"]) == 2
+    assert "multiple of --mesh-docs" in capsys.readouterr().err
     trace = str(tmp_path / "trace.json")
     assert tcli.main(base + ["--device", "cpu", "--timing",
                              "--trace", trace]) == 0

@@ -2,14 +2,15 @@
 ``query`` and ``serve`` subcommands.
 
     python -m tfidf_tpu_torch.cli run --input DIR [--output output.txt]
-        [--backend cuda|mpi [--nranks N] [--comm thread|process]]
+        [--backend cuda|tpu|mpi [--nranks N] [--comm thread|process]]
         [--vocab-mode exact|hashed] [--vocab-size N] [--topk K]
         [--tokenizer whitespace|chargram] [--ngram LO,HI]
-        [--engine dense|sparse] [--result-wire packed|pair]
+        [--engine dense|sparse] [--pallas] [--result-wire packed|pair]
         [--score-dtype float32|bfloat16|float16] [--device cuda|cpu]
         [--doc-len L [--chunk-docs N] [--spill auto|host|reread]
          [--wire ragged|padded|bytes] [--finish scan|chunked]
          [--pack-threads T]] [--exact-terms [--exact-margin M]]
+        [--mesh D,S,V] [--ingest-workers N] [--compile-cache DIR]
         [--no-strict] [--inspect] [--timing] [--trace out.json]
 
 Without ``--topk`` it writes the reference's ``output.txt`` (byte-
@@ -31,12 +32,17 @@ devices (``--device cpu``: that many CPU shards), any other through
 ``config.mesh_shape``. ``--ingest-workers N`` (or
 ``TFIDF_TPU_INGEST_WORKERS``) splits a single-device ``--doc-len`` run
 over N worker processes (``parallel.multihost.run_sharded_ingest``).
-The gating messages and exit codes are the JAX CLI's.
+``--pallas`` sets ``PipelineConfig.use_pallas`` as the JAX CLI does: the
+hashed default engine becomes dense and a ``--doc-len`` run is refused
+(exit 2); the port's kernels run either way, so the flag changes the
+route, not the kernels. ``--backend tpu`` names the accelerator path,
+which here is ``cuda``. The gating messages and exit codes are the JAX
+CLI's.
 
     python -m tfidf_tpu_torch.cli stream --input DIR [--output output.txt]
         [--batch-docs N] [--doc-len L] [--vocab-size V] [--topk K]
-        [--checkpoint CK [--resume]] [--no-strict] [--timing]
-        [--trace out.json] [--device cuda|cpu]
+        [--mesh-docs N] [--checkpoint CK [--resume]] [--no-strict]
+        [--timing] [--trace out.json] [--device cuda|cpu]
 
 streams the directory in minibatches of N documents (``StreamingTfidf``):
 pass 1 folds DF, saving the state to ``--checkpoint`` after every
@@ -44,28 +50,36 @@ minibatch; pass 2 scores every minibatch against the final DF and writes
 the top-k report. ``--resume`` restores the checkpoint and skips the
 ``docs_seen`` documents already folded, in discovery order, so a killed
 and resumed run writes the same bytes as an uninterrupted one (and as
-the JAX CLI's ``stream``).
+the JAX CLI's ``stream``). ``--mesh-docs N`` shards every minibatch over
+N devices (0 = all; ``--batch-docs`` must be a multiple of N).
 
     python -m tfidf_tpu_torch.cli query --input DIR --query TEXT
         [--query TEXT ...] [-k K] [--vocab-size N] [--doc-len L]
-        [--no-strict] [--device cuda|cpu]
+        [--mesh-docs N] [--compile-cache DIR] [--no-strict]
+        [--trace out.json] [--device cuda|cpu]
 
 indexes the directory (``TfidfRetriever.index_dir``; ``--doc-len``
-through the overlapped ingest's chunk step) and prints, per query,
-``query: <text>`` then one ``  <name>\t<score>`` line per result, as the
-JAX CLI's ``query`` does.
+through the overlapped ingest's chunk step; ``--mesh-docs N``
+block-sharded over N devices, 0 = all, which excludes ``--doc-len``) and
+prints, per query, ``query: <text>`` then one ``  <name>\t<score>`` line
+per result, as the JAX CLI's ``query`` does.
 
     python -m tfidf_tpu_torch.cli serve --input DIR [-k K] [--doc-len L]
         [--max-batch N] [--max-wait-ms MS] [--queue-depth N]
         [--serve-pipeline-depth D] [--delta-docs N] [--snapshot-dir DIR]
-        [--port P] [--device cuda|cpu] ...
+        [--mesh-shards N] [--port P] [--device cuda|cpu] ...
 
 indexes the directory (or restores ``--snapshot-dir``) and serves it
 through ``serve.TfidfServer``: one JSON request per line on stdin (or on
 TCP with ``--port``), one JSON response line each, in completion order —
 the JAX CLI's ``serve`` protocol and ops (``--help`` lists them).
-``--mesh-shards`` raises naming ROADMAP A9b, ``--replicas`` and
-``--replica-timeout-s`` ROADMAP A8b.
+``--mesh-shards N`` serves the index doc-sharded over N devices (0 =
+all; ``parallel.serving``). ``--replicas`` and ``--replica-timeout-s``
+raise naming ROADMAP A8b.
+
+``--compile-cache DIR`` (``run``, ``query``, ``serve``) is accepted so
+that the JAX CLI's command lines run unchanged; the port compiles no
+XLA, so it has no effect.
 
 Each runs on CUDA unless ``--device cpu`` is given, and fails when no GPU
 is present and no device was named.
@@ -110,6 +124,10 @@ Responses come back in completion order; correlate by "id".
 """
 
 
+_COMPILE_CACHE_HELP = ("accepted for the JAX CLI's command lines; the port "
+                       "compiles no XLA, so it has no effect")
+
+
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tfidf-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -118,9 +136,11 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--input", required=True, help="document directory")
     run.add_argument("--output", default="output.txt",
                      help="output file (reference format)")
-    run.add_argument("--backend", choices=["cuda", "mpi"], default="cuda",
-                     help="'cuda': the port (on --device); 'mpi': the "
-                          "native bit-reference, the oracle")
+    run.add_argument("--backend", choices=["cuda", "tpu", "mpi"],
+                     default="cuda",
+                     help="'cuda' (or 'tpu', the JAX CLI's name for the "
+                          "accelerator path): the port, on --device; "
+                          "'mpi': the native bit-reference, the oracle")
     run.add_argument("--nranks", type=int, default=4,
                      help="ranks for --backend=mpi")
     run.add_argument("--comm", choices=["thread", "process"],
@@ -139,6 +159,10 @@ def _build_parser() -> argparse.ArgumentParser:
                      help="emit only the top-k terms per document")
     run.add_argument("--engine", choices=["dense", "sparse"], default=None,
                      help="default: sparse for hashed vocab, dense for exact")
+    run.add_argument("--pallas", action="store_true",
+                     help="the JAX CLI's histogram-kernel route: the "
+                          "default engine becomes dense and --doc-len runs "
+                          "are refused (the port's kernels run either way)")
     run.add_argument("--result-wire", choices=["packed", "pair"],
                      default="packed",
                      help="top-k fetch: uint32 words (float16 scores) or "
@@ -193,6 +217,8 @@ def _build_parser() -> argparse.ArgumentParser:
                      help="multi-process sharded ingest: split a "
                           "single-device --doc-len run over N worker "
                           "processes (env TFIDF_TPU_INGEST_WORKERS)")
+    run.add_argument("--compile-cache", metavar="DIR", default=None,
+                     help=_COMPILE_CACHE_HELP)
     run.add_argument("--no-strict", action="store_true",
                      help="accept any filenames, not just doc<i>")
     run.add_argument("--inspect", action="store_true",
@@ -219,7 +245,8 @@ def _build_parser() -> argparse.ArgumentParser:
     st.add_argument("--topk", type=int, default=8)
     st.add_argument("--mesh-docs", type=int, default=None,
                     help="shard each minibatch over this many devices "
-                         "(not ported yet: ROADMAP A9b)")
+                         "(0 = all); the DF update becomes the incremental "
+                         "psum of BASELINE config 5")
     st.add_argument("--checkpoint", default=None,
                     help="checkpoint directory; state is saved after "
                          "every minibatch")
@@ -244,13 +271,17 @@ def _build_parser() -> argparse.ArgumentParser:
     q.add_argument("-k", type=int, default=5, help="results per query")
     q.add_argument("--vocab-size", type=int, default=1 << 16)
     q.add_argument("--mesh-docs", type=int, default=None,
-                   help="shard the index over this many devices (not "
-                        "ported yet: ROADMAP A9b)")
+                   help="shard the index over this many devices (0 = all)")
     q.add_argument("--doc-len", type=int, default=None,
                    help="static tokens per document: index via the "
                         "overlapped ingest's chunk step (native loader; "
-                        "longer docs truncated)")
+                        "longer docs truncated). Single-device only")
+    q.add_argument("--compile-cache", metavar="DIR", default=None,
+                   help=_COMPILE_CACHE_HELP)
     q.add_argument("--no-strict", action="store_true")
+    q.add_argument("--trace", default=None,
+                   help="record spans and write them as Chrome trace "
+                        "JSON to this path (or TFIDF_TPU_TRACE)")
     q.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
@@ -338,7 +369,10 @@ def _build_parser() -> argparse.ArgumentParser:
                          "snapshotted there")
     sv.add_argument("--mesh-shards", type=int, default=None,
                     help="serve one index doc-sharded over this many "
-                         "devices (not ported yet: ROADMAP A9b)")
+                         "devices (0 = all; env TFIDF_TPU_MESH_SHARDS): "
+                         "every install path re-shards")
+    sv.add_argument("--compile-cache", metavar="DIR", default=None,
+                    help=_COMPILE_CACHE_HELP)
     sv.add_argument("--query-slab", choices=["on", "off"], default=None,
                     help="query slab: pinned staging slots and one "
                          "non-blocking H2D copy a batch; 'off' allocates "
@@ -416,13 +450,16 @@ def _run_query(args) -> int:
     from tfidf_tpu_torch.config import PipelineConfig, VocabMode
     from tfidf_tpu_torch.models import TfidfRetriever
 
-    if args.mesh_docs is not None:
-        raise NotImplementedError(
-            "query --mesh-docs (the docs-sharded index) is not ported yet: "
-            "ROADMAP A9b")
     cfg = PipelineConfig(vocab_mode=VocabMode.HASHED,
                          vocab_size=args.vocab_size)
-    r = TfidfRetriever(cfg, device=args.device).index_dir(
+    plan = None
+    if args.mesh_docs is not None:
+        plan = _cli_plan({"docs": args.mesh_docs}, args.device)
+    if args.doc_len is not None and plan is not None:
+        sys.stderr.write("error: query --doc-len (chunked indexing) is "
+                         "single-device; drop --mesh-docs\n")
+        return 2
+    r = TfidfRetriever(cfg, plan=plan, device=args.device).index_dir(
         args.input, strict=not args.no_strict, doc_len=args.doc_len)
     vals, idx = r.search(args.query, k=args.k)
     for qi, text in enumerate(args.query):
@@ -642,10 +679,6 @@ def _run_serve(args) -> int:
     from tfidf_tpu_torch.pipeline import resolve_device
     from tfidf_tpu_torch.serve import TfidfServer
 
-    if args.mesh_shards is not None:
-        raise NotImplementedError(
-            "serve --mesh-shards (one index doc-sharded over several "
-            "devices) is not ported yet: ROADMAP A9b")
     if args.replicas is not None or args.replica_timeout_s is not None:
         raise NotImplementedError(
             "serve --replicas/--replica-timeout-s (the replicated serving "
@@ -678,6 +711,7 @@ def _run_serve(args) -> int:
         disttrace=(None if args.disttrace is None
                    else args.disttrace == "on"),
         pipeline_depth=args.serve_pipeline_depth,
+        mesh_shards=args.mesh_shards,
         scorer=args.scorer, bm25_k1=args.bm25_k1, bm25_b=args.bm25_b)
     if serve_cfg.disttrace is not None:
         from tfidf_tpu_torch.obs import disttrace
@@ -758,10 +792,17 @@ def _run_serve(args) -> int:
         # (empty queries stage the same blocks): on the card this builds
         # the kernels at first use and fills every query-slab ring, so
         # from mark_warm() on a native build is a recompile after warm.
+        # Warm the INSTALLED index (the server may have sharded it) and a
+        # sharded index's single-device source, the canary's oracle.
         _, installed = server.current_index()
+        warm_targets = [installed]
+        oracle = getattr(installed, "parity_oracle", lambda: None)()
+        if oracle is not None:
+            warm_targets.append(oracle)
         b = 1
         while b <= serve_cfg.max_batch:
-            installed.search([""] * b, k=args.k)
+            for target in warm_targets:
+                target.search([""] * b, k=args.k)
             b *= 2
         server.mark_warm()
     # The serve process's monitor is THE process monitor: workers that
@@ -786,6 +827,7 @@ def _run_serve(args) -> int:
                 period_s=args.canary_period_ms / 1e3).start()
     snap_state = ("restored" if restored_meta
                   else "on" if serve_cfg.snapshot_dir else "off")
+    mesh = serve_cfg.mesh_shards
     sys.stderr.write(f"serving {server.num_docs} docs on {device} "
                      f"(max_batch={serve_cfg.max_batch}, "
                      f"max_wait_ms={serve_cfg.max_wait_ms}, "
@@ -797,7 +839,8 @@ def _run_serve(args) -> int:
                      f"snapshot={snap_state}, "
                      f"faults={'armed' if serve_cfg.faults else 'off'}, "
                      f"segments="
-                     f"{'on' if segments is not None else 'off'})\n")
+                     f"{'on' if segments is not None else 'off'}, "
+                     f"mesh={'off' if mesh is None else mesh})\n")
 
     prev_term = _install_sigterm_dump()
     try:
@@ -956,14 +999,17 @@ def _run_stream(args) -> int:
     from tfidf_tpu_torch.streaming import StreamingTfidf
     from tfidf_tpu_torch.utils.timing import PhaseTimer
 
-    if args.mesh_docs is not None:
-        raise NotImplementedError(
-            "stream --mesh-docs (the docs-sharded stream) is not ported "
-            "yet: ROADMAP A9b")
     cfg = PipelineConfig(vocab_mode=VocabMode.HASHED,
                          vocab_size=args.vocab_size, topk=args.topk,
                          max_doc_len=args.doc_len, doc_chunk=args.doc_len)
-    stream = StreamingTfidf(cfg, device=args.device)
+    plan = None
+    if args.mesh_docs is not None:
+        plan = _cli_plan({"docs": args.mesh_docs}, args.device)
+        if args.batch_docs % plan.n_docs_shards:
+            sys.stderr.write("error: --batch-docs must be a multiple of "
+                             "--mesh-docs (rows block-shard evenly)\n")
+            return 2
+    stream = StreamingTfidf(cfg, plan, device=args.device)
     names = discover_names(args.input, strict=not args.no_strict)
     if not names:
         sys.stderr.write(f"error: no documents in {args.input}\n")
@@ -1058,7 +1104,8 @@ def _overlapped(args, cfg, exact_terms: bool) -> Optional[bool]:
                   and cfg.vocab_mode is VocabMode.HASHED
                   and cfg.topk is not None
                   and cfg.tokenizer is TokenizerKind.WHITESPACE
-                  and mesh_ok and cfg.engine == "sparse")
+                  and mesh_ok and not args.pallas
+                  and cfg.engine == "sparse")
     if args.finish == "scan" and overlapped \
             and (not use_packed_result_wire(cfg) or exact_terms):
         sys.stderr.write(
@@ -1156,10 +1203,10 @@ def _run(args) -> int:
         # the hashed exact-terms engine keeps a margin of candidates
         topk=(max(2, args.exact_margin) * args.topk if exact_terms
               else args.topk),
-        engine=args.engine, mesh_shape=mesh_shape,
+        engine=args.engine, use_pallas=args.pallas, mesh_shape=mesh_shape,
         result_wire=args.result_wire, score_dtype=args.score_dtype,
         wire=args.wire, pack_threads=args.pack_threads,
-        finish=args.finish or "scan")
+        finish=args.finish or "scan", compile_cache=args.compile_cache)
     strict = not args.no_strict
     timer = PhaseTimer() if args.timing else None
 
@@ -1270,8 +1317,6 @@ def _run(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
-    if args.cmd == "query":
-        return _run_query(args)
     if args.cmd == "run" and args.backend == "mpi":
         return _run_mpi(args)
     # Arm the span tracer (--trace / TFIDF_TPU_TRACE; a no-op when neither
@@ -1286,6 +1331,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             return _run_serve(args)
         if args.cmd == "run":
             return _run(args)
+        if args.cmd == "query":
+            return _run_query(args)
         return _run_stream(args)
     finally:
         path = obs.export()

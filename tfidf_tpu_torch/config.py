@@ -195,9 +195,11 @@ class ServeConfig:
         ``TFIDF_TPU_DELTA_DOCS``.
       compact_at: sealed-segment count at which the compactor merges.
         ``--compact-at`` / ``TFIDF_TPU_COMPACT_AT``.
-      mesh_shards: accepted and validated; serving with it set raises
-        ``NotImplementedError`` (the docs-sharded index is ROADMAP A9b).
-        ``--mesh-shards`` / ``TFIDF_TPU_MESH_SHARDS``.
+      mesh_shards: serve ONE index doc-sharded over this many devices of
+        the index's device type (0 = every device; on the CPU, one
+        shard): every install path re-shards through
+        ``parallel.serving.shard_index``. ``--mesh-shards`` /
+        ``TFIDF_TPU_MESH_SHARDS``.
       query_slab: the query slab (pinned host staging slots, one
         non-blocking H2D copy a batch); None resolves
         ``TFIDF_TPU_QUERY_SLAB`` (default on), False allocates the block

@@ -17,8 +17,19 @@ Scores are cosine similarities in [0, 1] under the default tfidf scorer;
 
 Entry points run on CUDA unless the caller names another device
 (``TfidfRetriever(cfg, device="cpu")``, ``restore(path, device="cpu")``);
-with no GPU and no device named they raise. Not in this module: the
-docs-sharded mesh search (``plan=`` raises naming ROADMAP A9b).
+with no GPU and no device named they raise.
+
+With a docs-only mesh ``plan`` the index lives block-sharded over the
+plan's devices: the batch packing grows the corpus to a shard multiple,
+each shard sorts and weighs its own rows with the single-device build's
+halves (one ``MeshPlan.psum`` of DF between them), and a search runs
+``parallel.serving.sharded_search``: per shard the tiled score + top-k
+(B6 on every tile), the candidates gathered in shard order and merged.
+The JAX package scores such an index with a chunked XLA gather-dot and
+``lax.top_k`` per shard; the port scores it as it scores one device, so
+a plan's answers equal the single-device search bit for bit. A plan
+serves the default scorer only, has no query slab, no fielded index and
+no snapshot, as in the JAX package.
 
 Telemetry, as in the JAX package: a search opens an ``h2d`` span
 (byte-stamped) around the query block's copy to the device and a
@@ -79,6 +90,27 @@ def _build_index(token_ids: torch.Tensor, lengths: torch.Tensor,
     return ids, _normalize_rows(scores), head, idf
 
 
+def _build_index_sharded(plan, token_ids: np.ndarray, lengths: np.ndarray,
+                         num_docs: int, *, vocab_size: int):
+    """:func:`_build_index` over a docs-only mesh: each shard runs its
+    halves on its own rows, with the docs psum of DF between them. ->
+    ([(ids, weights, head)] per local shard, idf on the first device)."""
+    from tfidf_tpu_torch.parallel.collectives import place_batch
+    placed = place_batch(plan, token_ids, lengths)
+    trips, dfs = [], []
+    for d in range(plan.n_local_docs):
+        toks, lens = placed.tokens[d, 0, 0], placed.lengths[d, 0, 0]
+        ids, counts, head = sorted_term_counts(toks, lens)
+        trips.append((ids, counts, head, lens))
+        dfs.append(sparse_df(ids, head, vocab_size))
+    idf = idf_from_df(plan.psum(dfs), num_docs, torch.float32)
+    blocks = []
+    for ids, counts, head, lens in trips:
+        scores = sparse_scores(ids, counts, head, lens, idf.to(ids.device))
+        blocks.append((ids, _normalize_rows(scores), head))
+    return blocks, idf
+
+
 def _finish_index(trip_i, trip_c, trip_h, len_parts, df_acc, num_docs: int):
     """Chunk-ingested triples (``ingest._chunk_step``, the overlapped
     ingest's own chunk step) -> (ids, weights, head, idf): one
@@ -93,6 +125,10 @@ def _finish_index(trip_i, trip_c, trip_h, len_parts, df_acc, num_docs: int):
 # The TFIDF_TPU_SCORE_TILING=off path splits query batches at this width,
 # as the JAX package's untiled fallback does.
 _LEGACY_QUERY_BLOCK = 64
+
+_PLAN_SCORERS = ("plan-sharded TfidfRetriever serves the default scorer "
+                 "only — shard non-default scorers via "
+                 "MeshShardedRetriever")
 
 
 class PendingSearch:
@@ -216,23 +252,28 @@ class TfidfRetriever:
 
     Args:
       config: HASHED-vocab pipeline config (default 2^16 vocab).
-      plan: must be None (the docs-sharded mesh search is ROADMAP A9b).
+      plan: optional docs-only :class:`~tfidf_tpu_torch.parallel.MeshPlan`;
+        the index then lives block-sharded over its devices (see the
+        module docstring).
       scorer: the index-default scorer (explicit > ``TFIDF_TPU_SCORER``
         > tfidf).
       device: CUDA unless named; raises without a GPU and no device.
+        Under a plan, the plan's first device.
     """
 
     def __init__(self, config: Optional[PipelineConfig] = None,
                  plan=None, scorer=None, device=None):
-        if plan is not None:
-            raise NotImplementedError(
-                "TfidfRetriever(plan=...) (the docs-sharded mesh search) "
-                "is not ported yet: ROADMAP A9b")
         self.config = config or PipelineConfig(vocab_mode=VocabMode.HASHED)
         if self.config.vocab_mode is not VocabMode.HASHED:
             raise ValueError("TfidfRetriever requires HASHED vocab")
-        self.device = resolve_device(device)
-        self.plan = None
+        if plan is not None and (plan.n_vocab_shards != 1
+                                 or plan.n_seq_shards != 1):
+            raise ValueError("retrieval shards the docs axis only")
+        self.device = (plan.devices[0] if plan is not None
+                       else resolve_device(device))
+        self.plan = plan
+        # Under a plan: [(ids, weights, head)] per local docs shard.
+        self._blocks: Optional[list] = None
         self.scorer: ScorerSpec = resolve_scorer(scorer)
         # Per-scorer faces and per-filter live masks; both are dropped
         # on every index install.
@@ -253,8 +294,9 @@ class TfidfRetriever:
         self._idf_src = None
 
     def _install(self, ids, weights, head, idf, names, num_docs: int,
-                 fields=None) -> "TfidfRetriever":
+                 fields=None, blocks=None) -> "TfidfRetriever":
         self._ids, self._weights, self._head = ids, weights, head
+        self._blocks = blocks
         self._idf = idf
         self.names = list(names)
         self._num_docs = int(num_docs)
@@ -272,6 +314,15 @@ class TfidfRetriever:
     # --- indexing ---
     def index(self, corpus: Corpus) -> "TfidfRetriever":
         cfg = self.config
+        if self.plan is not None:
+            batch = pack_corpus(corpus, cfg,
+                                pad_docs_to=self.plan.pad_docs(len(corpus)),
+                                want_words=False)
+            blocks, idf = _build_index_sharded(
+                self.plan, batch.token_ids, batch.lengths, len(corpus),
+                vocab_size=cfg.vocab_size)
+            return self._install(None, None, None, idf, corpus.names,
+                                 len(corpus), blocks=blocks)
         batch = pack_corpus(corpus, cfg, want_words=False)
         toks = self._to_device(batch.token_ids.astype(np.int32, copy=False))
         lens = self._to_device(batch.lengths)
@@ -288,8 +339,9 @@ class TfidfRetriever:
         on the device by the ragged-rebuild kernel; the packer thread
         reads chunk i+1 while the device sorts chunk i); documents longer
         than ``doc_len`` tokens are truncated. Default (None) packs the
-        whole corpus in one batch with L grown to the longest doc."""
-        if doc_len is None:
+        whole corpus in one batch with L grown to the longest doc; a
+        mesh plan always takes it (its placement is the batch's)."""
+        if doc_len is None or self.plan is not None:
             return self.index(discover_corpus(input_dir, strict))
         from tfidf_tpu_torch.ingest import (_chunk_step, _PackAhead,
                                             _resident_chunking, _upload,
@@ -336,6 +388,9 @@ class TfidfRetriever:
         weights pre-scaled by the field weight, so one row's dot IS the
         weighted sum over fields. Query columns use the union IDF
         (N = n_fields * D). The bm25 face derives per field slice."""
+        if self.plan is not None:
+            raise ValueError("fielded indexes are single-device (wrap in "
+                             "MeshShardedRetriever to shard)")
         fields = list(fields)
         if not fields:
             raise ValueError(
@@ -379,6 +434,13 @@ class TfidfRetriever:
     def indexed(self) -> bool:
         return self._num_docs > 0
 
+    def index_arrays(self) -> list:
+        """The index's device tensors (every shard's under a plan), for
+        the device monitor's census."""
+        if self._blocks is not None:
+            return [self._idf] + [t for b in self._blocks for t in b]
+        return [self._ids, self._weights, self._head, self._idf]
+
     # --- snapshot / restore ---
     def snapshot(self, path: str, epoch: int = 0,
                  extra_meta: Optional[dict] = None) -> str:
@@ -389,6 +451,9 @@ class TfidfRetriever:
         from tfidf_tpu_torch import checkpoint as ckpt
         if not self.indexed:
             raise RuntimeError("index() a corpus before snapshot()")
+        if self.plan is not None:
+            raise ValueError("snapshot() supports single-device indexes "
+                             "only")
         # Doc names ride as one NUL-joined uint8 blob (filenames cannot
         # contain NUL).
         blob = np.frombuffer(
@@ -509,6 +574,8 @@ class TfidfRetriever:
         re-derived on the device from ``(ids, head)``
         (``scoring.family.bm25_face_trace``), per field slice when the
         index is fielded."""
+        if self.plan is not None:
+            raise ValueError(_PLAN_SCORERS)
         key = spec.key()
         face = self._faces.get(key)
         if face is not None:
@@ -563,6 +630,33 @@ class TfidfRetriever:
             self._filters[key] = live
         return live
 
+    def _shard_faces(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Under a plan: each shard's default ``(data, cols)`` face, the
+        single-device tfidf face's two ops on its rows, cached until the
+        next index install."""
+        faces = self._faces.get("shards")
+        if faces is None:
+            faces = [(torch.where(head, weights, 0.0),
+                      torch.where(head, ids, 0).to(torch.int32))
+                     for ids, weights, head in self._blocks]
+            self._faces["shards"] = faces
+        return faces
+
+    def _shard_live(self) -> List[torch.Tensor]:
+        """Under a plan: each shard's rows that hold documents (the batch
+        grows the corpus to a shard multiple with empty rows)."""
+        live = self._filters.get("shards")
+        if live is None:
+            plan = self.plan
+            live = []
+            for d, (ids, _, _) in enumerate(self._blocks):
+                rows = int(ids.shape[0])
+                first = (plan.first_docs_shard + d) * rows
+                live.append(torch.arange(first, first + rows,
+                                         device=ids.device) < self._num_docs)
+            self._filters["shards"] = live
+        return live
+
     def _real_rows(self) -> torch.Tensor:
         """The live mask of the rows that hold documents (an ingested
         index pads its last chunk), cached under the empty filter key."""
@@ -600,34 +694,11 @@ class TfidfRetriever:
         slab.note_h2d(buf.nbytes)
         return qmat, lambda: slab.release(slot)
 
-    def search_async(self, queries: Sequence[Union[str, bytes]],
-                     k: int = 10, *, scorer=None,
-                     filter=None) -> "PendingSearch":
-        """Dispatch stage of :meth:`search`: stage the query block, issue
-        the search, start the copy of the result to the host, and return
-        without waiting. ``materialize()`` on the returned
-        :class:`PendingSearch` waits for it, releases the query slot
-        (slot release stays keyed to the result: the reuse guard) and
-        applies the trim/mask tail. Every scorer and filter takes this
-        one body: the scorer picks the face and the query columns (raw
-        counts for bm25), the filter the live mask. The legacy >64-query
-        split of the untiled path returns an already-resolved handle."""
-        if not self.indexed:
-            raise RuntimeError("index() a corpus before search()")
-        spec = self.scorer if scorer is None else parse_scorer(scorer)
-        fspec = parse_filter(filter)
-        nq = len(queries)
-        tiled = score_tiling()
-        if not tiled and nq > _LEGACY_QUERY_BLOCK:
-            parts = [self.search(queries[s:s + _LEGACY_QUERY_BLOCK], k,
-                                 scorer=spec, filter=fspec)
-                     for s in range(0, nq, _LEGACY_QUERY_BLOCK)]
-            return PendingSearch.resolved(
-                np.concatenate([p[0] for p in parts]),
-                np.concatenate([p[1] for p in parts]))
-        # Query-count bucketing: Q pads to the next power of two; the
-        # zero columns score 0 everywhere and their rows are dropped.
-        bucket = 1 << max(0, nq - 1).bit_length()
+    def _dispatch(self, queries, k: int, spec: ScorerSpec,
+                  fspec: Optional[FilterSpec], bucket: int, tiled: bool):
+        """The single-device search's device stage: stage the query block,
+        score (tiled, or untiled) and start the result's copy to the
+        host. -> (vals copy, ids copy, release of the staging slot)."""
         kk = min(k, int(self._ids.shape[0]))
         data, cols = self._scorer_face(spec)
         live = self._filter_live(fspec)
@@ -648,10 +719,55 @@ class TfidfRetriever:
                 vals, idx = segment_score_topk(
                     data, cols, self._real_rows() if live is None else live,
                     qmat, kk)
-            host_v, host_i = _HostCopy(vals), _HostCopy(idx)
+            return _HostCopy(vals), _HostCopy(idx), release
         except BaseException:
             release()  # nothing in flight
             raise
+
+    def search_async(self, queries: Sequence[Union[str, bytes]],
+                     k: int = 10, *, scorer=None,
+                     filter=None) -> "PendingSearch":
+        """Dispatch stage of :meth:`search`: stage the query block, issue
+        the search, start the copy of the result to the host, and return
+        without waiting. ``materialize()`` on the returned
+        :class:`PendingSearch` waits for it, releases the query slot
+        (slot release stays keyed to the result: the reuse guard) and
+        applies the trim/mask tail. Every scorer and filter takes this
+        one body: the scorer picks the face and the query columns (raw
+        counts for bm25), the filter the live mask. The legacy >64-query
+        split of the untiled path returns an already-resolved handle."""
+        if not self.indexed:
+            raise RuntimeError("index() a corpus before search()")
+        spec = self.scorer if scorer is None else parse_scorer(scorer)
+        fspec = parse_filter(filter)
+        if self.plan is not None and not (spec.is_default and fspec is None):
+            raise ValueError(_PLAN_SCORERS)
+        nq = len(queries)
+        tiled = score_tiling()
+        if not tiled and self.plan is None and nq > _LEGACY_QUERY_BLOCK:
+            parts = [self.search(queries[s:s + _LEGACY_QUERY_BLOCK], k,
+                                 scorer=spec, filter=fspec)
+                     for s in range(0, nq, _LEGACY_QUERY_BLOCK)]
+            return PendingSearch.resolved(
+                np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+        # Query-count bucketing: Q pads to the next power of two; the
+        # zero columns score 0 everywhere and their rows are dropped.
+        bucket = 1 << max(0, nq - 1).bit_length()
+        if self.plan is not None:
+            # No query slab under a plan (the JAX package's mesh search
+            # packs a fresh block): one upload per shard device.
+            from tfidf_tpu_torch.parallel.serving import sharded_search
+            faces = self._shard_faces()
+            vals, idx = sharded_search(
+                self.plan, [f[0] for f in faces], [f[1] for f in faces],
+                self._shard_live(), self._query_matrix(queries, pad_to=bucket),
+                k)
+            host_v, host_i, release = (_HostCopy(vals), _HostCopy(idx),
+                                       lambda: None)
+        else:
+            host_v, host_i, release = self._dispatch(queries, k, spec, fspec,
+                                                     bucket, tiled)
         # num_docs is read now, so an index install racing the
         # materialization cannot skew this batch's trim and mask.
         num_docs = self._num_docs

@@ -15,8 +15,9 @@ Estimator semantics:
   and scores from the same corpus.
 
 Requires HASHED vocab. Runs on CUDA unless ``device`` names another;
-with no GPU and no device named it raises. A mesh ``plan`` is ROADMAP
-A9b.
+with no GPU and no device named it raises. A mesh ``plan`` passes through
+to the stream (the docs-sharded fit and transform of
+:class:`StreamingTfidf`).
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ class TfidfVectorizer:
 
     Args:
       config: pipeline config (must be HASHED vocab mode; default 2^16).
-      plan: must be None (the sharded fit is ROADMAP A9b).
+      plan: optional :class:`~tfidf_tpu_torch.parallel.MeshPlan` for the
+        sharded fit and transform.
       batch_docs: minibatch size used when fitting from a corpus.
       device: CUDA unless named; passed on to :class:`StreamingTfidf`.
     """

@@ -14,6 +14,10 @@ CUDA).
   the tensors of registered OWNERS (the resident index) by storage
   identity; PyTorch has no counterpart of ``jax.live_arrays()``, so the
   rest of ``torch.cuda.memory_allocated()`` is reported as ``other``.
+  Fed a mesh-sharded index's ``shard_stats`` (:meth:`DeviceMonitor.
+  register_shards`), it publishes the per-shard index bytes
+  (``shard_bytes_d*``, ``shard_imbalance_milli``, the ``shard_balance``
+  flight event and the snapshot's ``shards``).
   A monitor of the CPU (no CUDA device, or ``device="cpu"``) returns the
   stats the JAX package returns on its CPU backend: one device entry
   with no memory keys, pressure 0.0, no gauges.
@@ -113,6 +117,8 @@ class DeviceMonitor:
         self._gauges: Dict[str, object] = {}
         self._pressure = 0.0            # last sampled max fraction
         self._peak_bytes = 0            # max peak bytes seen
+        self._shards_fn: Optional[Callable] = None
+        self._last_shard_bytes: Optional[Tuple[int, ...]] = None
         self._armed_mark: Optional[float] = None  # highest rung crossed
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -126,6 +132,19 @@ class DeviceMonitor:
         survives a hot swap that way."""
         with self._lock:
             self._owners[name] = arrays_fn
+
+    def register_shards(self, shards_fn: Optional[Callable]) -> None:
+        """Attach a mesh-shard balance feed: ``shards_fn()`` returns the
+        :meth:`~tfidf_tpu_torch.parallel.serving.MeshShardedRetriever.
+        shard_stats` dict (``n_shards`` / ``shard_bytes`` /
+        ``imbalance``), or None while the index is not sharded. Every
+        :meth:`sample` then publishes the ``shard_bytes_d*`` gauges and
+        ``shard_imbalance_milli`` and logs an edge-triggered
+        ``shard_balance`` flight event when the per-shard bytes change
+        (only an index install moves them)."""
+        with self._lock:
+            self._shards_fn = shards_fn
+            self._last_shard_bytes = None
 
     # --- sampling -----------------------------------------------------
     def _cuda_indices(self) -> List[int]:
@@ -162,6 +181,14 @@ class DeviceMonitor:
         its own cadence."""
         indices = self._cuda_indices()
         with self._lock:
+            shards_fn = self._shards_fn
+        shard_stats = None
+        if shards_fn is not None:
+            try:
+                shard_stats = shards_fn()
+            except Exception:   # a mid-swap index must not kill sampling
+                shard_stats = None
+        with self._lock:
             devices = []
             pressure = 0.0
             if not indices:
@@ -196,10 +223,41 @@ class DeviceMonitor:
             self._pressure = pressure
             self._samples += 1
             self._watermark_check(pressure)
-            return {"devices": devices,
+            snap = {"devices": devices,
                     "memory_pressure": round(pressure, 4),
                     "peak_bytes": self._peak_bytes,
                     "samples": self._samples}
+        if shard_stats:
+            self._publish_shards(shard_stats)
+            snap["shards"] = shard_stats
+        return snap
+
+    def _publish_shards(self, stats: dict) -> None:
+        """Gauges and the edge-triggered flight event of one shard-balance
+        reading (under the lock: the gauge map and the edge state are
+        the same cross-thread read-modify-writes :meth:`sample`
+        serializes)."""
+        per = stats.get("shard_bytes") or []
+        imbalance = stats.get("imbalance", 1.0)
+        with self._lock:
+            for i, b in enumerate(per):
+                self._gauge(f"shard_bytes_d{i}",
+                            "index bytes resident on this docs-shard"
+                            ).set(int(b))
+            self._gauge("shard_imbalance_milli",
+                        "max/mean per-shard index bytes, in 1/1000"
+                        ).set(int(round(imbalance * 1000)))
+            key = tuple(int(b) for b in per)
+            changed = key != self._last_shard_bytes
+            self._last_shard_bytes = key
+        if changed:
+            obs_log.log_event(
+                "info", "shard_balance",
+                msg=f"index sharded {len(per)} ways: "
+                    f"{[round(b / 1e6, 2) for b in per]} MB/shard, "
+                    f"imbalance {imbalance:.3f}",
+                n_shards=stats.get("n_shards", len(per)),
+                shard_bytes=list(key), imbalance=imbalance)
 
     def _kind(self, index: int) -> str:
         if self._stats_fn is not None:

@@ -97,70 +97,100 @@ def gather_rows(plan: MeshPlan, parts: List[torch.Tensor]) -> torch.Tensor:
     return plan.all_gather(parts, dim=0, across_processes=True)
 
 
+def sharded_counts(plan: MeshPlan, batch: ShardedBatch, vocab_size: int
+                   ) -> Dict[Tuple[int, int], torch.Tensor]:
+    """Each (local docs shard d, vocab shard v)'s dense [Dl, V / n_vocab]
+    counts: per seq shard the TF/DF kernel histograms vocab shard v's id
+    range of its token chunk (counts only: presence is taken after the
+    seq psum, since a chunk's partial counts can undercount it), then the
+    seq psum assembles each document's counts. ``vocab_size`` is the
+    global (padded) V."""
+    n_seq, n_vocab = plan.n_seq_shards, plan.n_vocab_shards
+    v_shard = vocab_size // n_vocab
+    counts: Dict[Tuple[int, int], torch.Tensor] = {}
+    for d in range(plan.n_local_docs):
+        for v in range(n_vocab):
+            parts = []
+            for s in range(n_seq):
+                tok = batch.tokens[d, s, v]
+                ll = tok.shape[1]
+                # global positions [s * ll, (s + 1) * ll) of each doc:
+                # the kernel masks by this chunk's remaining length
+                rem = torch.clamp(batch.lengths[d, s, v] - s * ll, 0, ll)
+                c, _ = tf_df(tok, rem, vocab_size=v_shard,
+                             id_offset=v * v_shard, with_df=False)
+                parts.append(c)
+            counts[d, v] = plan.psum(parts, across_processes=False)
+    return counts
+
+
+def presence_df(plan: MeshPlan, counts: Dict[Tuple[int, int], torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """Each vocab shard's DF: the docs psum of the documents' presence."""
+    return [plan.psum([(counts[d, v] > 0).sum(dim=0, dtype=torch.int32)
+                       for d in range(plan.n_local_docs)])
+            for v in range(plan.n_vocab_shards)]
+
+
+def vocab_rows(plan: MeshPlan, blocks: Dict[Tuple[int, int], torch.Tensor]
+               ) -> List[torch.Tensor]:
+    """Each local docs shard's [Dl, V] rows, its vocab shards in order."""
+    return [plan.all_gather([blocks[d, v]
+                             for v in range(plan.n_vocab_shards)], dim=1)
+            for d in range(plan.n_local_docs)]
+
+
+def select_topk(plan: MeshPlan, scores: Dict[Tuple[int, int], torch.Tensor],
+                topk: int, v_shard: int
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Per local docs shard, the top-k of its dense rows across the vocab
+    shards: each vocab shard keeps its own top k, the K-wide candidates
+    gather in vocab-shard order (lower ids first) and are selected again,
+    so ties go to the lower id as on one device."""
+    k_local = min(topk, v_shard)
+    vals, ids = [], []
+    for d in range(plan.n_local_docs):
+        cand_v, cand_i = [], []
+        for v in range(plan.n_vocab_shards):
+            tv, ti = topk_rows(scores[d, v], k_local)
+            cand_v.append(tv)
+            cand_i.append(ti + v * v_shard)
+        vg = plan.all_gather(cand_v, dim=1)
+        ig = plan.all_gather(cand_i, dim=1)
+        vk, sel = topk_rows(vg, min(topk, vg.shape[1]))
+        vals.append(vk)
+        ids.append(torch.gather(ig, 1, sel.long()))
+    return vals, ids
+
+
 def make_sharded_forward(plan: MeshPlan, vocab_size: int, score_dtype,
                          topk: Optional[int]):
     """The dense sharded forward: f(batch: ShardedBatch, num_docs) ->
     (counts, df, scores), or (df, vals, ids) with ``topk``.
 
     ``vocab_size`` is the global (padded) V, a vocab-shard multiple;
-    each vocab shard owns V / n_vocab_shards contiguous ids. Per shard
-    the TF/DF kernel histograms that id range of the shard's token chunk
-    (counts only: presence is taken after the seq psum, since a chunk's
-    partial counts can undercount it); the seq psum assembles each
-    document's counts, DF is the docs psum of presence, then the IDF
-    and the scores. In top-k mode each vocab shard keeps its own top k,
-    the K-wide candidates gather in vocab-shard order (lower ids first)
-    and are selected again, so ties go to the lower id as on one device.
+    each vocab shard owns V / n_vocab_shards contiguous ids
+    (:func:`sharded_counts`); DF is the docs psum of presence
+    (:func:`presence_df`), then the IDF and the scores; in top-k mode
+    :func:`select_topk`.
     """
     if vocab_size % plan.n_vocab_shards:
         raise ValueError(f"vocab_size {vocab_size} not divisible by "
                          f"{plan.n_vocab_shards} vocab shards")
     dtype = canonical_score_dtype(score_dtype)
-    n_seq, n_vocab = plan.n_seq_shards, plan.n_vocab_shards
-    v_shard = vocab_size // n_vocab
+    v_shard = vocab_size // plan.n_vocab_shards
 
     def forward(batch: ShardedBatch, num_docs: int):
-        counts: Dict[Tuple[int, int], torch.Tensor] = {}
-        for d in range(plan.n_local_docs):
-            for v in range(n_vocab):
-                parts = []
-                for s in range(n_seq):
-                    tok = batch.tokens[d, s, v]
-                    ll = tok.shape[1]
-                    # global positions [s * ll, (s + 1) * ll) of each doc:
-                    # the kernel masks by this chunk's remaining length
-                    rem = torch.clamp(batch.lengths[d, s, v] - s * ll, 0, ll)
-                    c, _ = tf_df(tok, rem, vocab_size=v_shard,
-                                 id_offset=v * v_shard, with_df=False)
-                    parts.append(c)
-                counts[d, v] = plan.psum(parts, across_processes=False)
-        df = [plan.psum([(counts[d, v] > 0).sum(dim=0, dtype=torch.int32)
-                         for d in range(plan.n_local_docs)])
-              for v in range(n_vocab)]
+        counts = sharded_counts(plan, batch, vocab_size)
+        df = presence_df(plan, counts)
         scores = {(d, v): tfidf_dense(counts[d, v], batch.lengths[d, 0, v],
                                       df[v].to(counts[d, v].device),
                                       num_docs, dtype)
                   for (d, v) in counts}
         df_all = plan.all_gather(df, dim=0)
         if topk is None:
-            def rows(blocks):  # each docs shard's [Dl, V], vocab in order
-                return [plan.all_gather([blocks[d, v] for v in range(n_vocab)],
-                                        dim=1)
-                        for d in range(plan.n_local_docs)]
-            return rows(counts), df_all, rows(scores)
-        k_local = min(topk, v_shard)
-        vals, ids = [], []
-        for d in range(plan.n_local_docs):
-            cand_v, cand_i = [], []
-            for v in range(n_vocab):
-                tv, ti = topk_rows(scores[d, v], k_local)
-                cand_v.append(tv)
-                cand_i.append(ti + v * v_shard)
-            vg = plan.all_gather(cand_v, dim=1)
-            ig = plan.all_gather(cand_i, dim=1)
-            vk, sel = topk_rows(vg, min(topk, vg.shape[1]))
-            vals.append(vk)
-            ids.append(torch.gather(ig, 1, sel.long()))
+            return vocab_rows(plan, counts), df_all, vocab_rows(plan, scores)
+        vals, ids = select_topk(plan, scores, topk, v_shard)
         return df_all, vals, ids
 
     return forward

@@ -10,8 +10,14 @@ Composition::
       B6 on every doc tile, result copied back into pinned memory) ──
       drain: rows sliced per request, cache filled, Future resolved.
 
-The index is a flat :class:`~tfidf_tpu_torch.models.TfidfRetriever` or a
-segmented :class:`~tfidf_tpu_torch.index.IndexView`, taken by duck type.
+The index is a flat :class:`~tfidf_tpu_torch.models.TfidfRetriever`, a
+segmented :class:`~tfidf_tpu_torch.index.IndexView` or a doc-sharded
+:class:`~tfidf_tpu_torch.parallel.MeshShardedRetriever`, taken by duck
+type. With ``ServeConfig.mesh_shards`` set, the index is ONE logical
+index doc-sharded over that many devices of the index's device type
+(``parallel.serving.make_serving_plan``), and every install path — the
+constructor, swaps, mutation views, compaction, a restored snapshot —
+re-shards through ``shard_index`` before the flip.
 
 Guarantees (the JAX package's, held the same way):
 
@@ -34,9 +40,8 @@ Guarantees (the JAX package's, held the same way):
   budget, and :meth:`snapshot` / restore-on-start persist the resident
   index in the JAX package's snapshot format.
 
-Not here: the docs-sharded mesh index (``ServeConfig.mesh_shards``
-raises naming ROADMAP A9b) and the replicated front
-(``ServeConfig.replicas`` raises naming ROADMAP A8b).
+Not here: the replicated front (``ServeConfig.replicas`` raises naming
+ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -95,15 +100,23 @@ class TfidfServer:
             raise ValueError("TfidfServer needs an indexed retriever; "
                              "call index()/index_dir() first")
         self.config = config or ServeConfig.from_env()
-        if self.config.mesh_shards is not None:
-            raise NotImplementedError(
-                "ServeConfig.mesh_shards (serving one index doc-sharded "
-                "over several devices) is not ported yet: ROADMAP A9b")
         if self.config.replicas is not None:
             raise NotImplementedError(
                 "ServeConfig.replicas (the replicated serving front) is "
                 "not ported yet: ROADMAP A8b")
         self.metrics = metrics or ServeMetrics()
+        # Mesh-sharded serving: every install path (this constructor,
+        # swaps, mutation views) re-shards through the same transform, so
+        # none can install a single-device index into a sharded server.
+        self._mesh_plan = None
+        self._index_transform = None
+        if self.config.mesh_shards is not None:
+            from tfidf_tpu_torch.parallel.serving import (make_serving_plan,
+                                                          shard_index)
+            plan = self._mesh_plan = make_serving_plan(
+                self.config.mesh_shards, device=retriever.device)
+            self._index_transform = lambda r: shard_index(r, plan)
+            retriever = self._index_transform(retriever)
         self._apply_query_slab(retriever)
         self._retriever = retriever
         # initial_epoch: a snapshot-restored server resumes at the
@@ -558,7 +571,11 @@ class TfidfServer:
         synchronously — every path that changes what a query could
         observe (swap, add, delete, seal, compaction install) funnels
         here, which is the no-stale-cache / no-false-canary contract
-        tests/test_index.py pins for the JAX package."""
+        tests/test_index.py pins for the JAX package. Under
+        ``mesh_shards`` the incoming index is re-sharded first, outside
+        the admission lock (placement is slow; the flip stays atomic)."""
+        if self._index_transform is not None:
+            retriever = self._index_transform(retriever)
         self._apply_query_slab(retriever)
         with self._lock:
             if self._closed:
@@ -718,7 +735,15 @@ class TfidfServer:
         pressure becomes a degraded health signal — high HBM shrinks
         the admission bound exactly like queue saturation does."""
         monitor.register_owner("resident_index", self._index_arrays)
+        monitor.register_shards(self._shard_stats)
         self.health.add_signal("memory_pressure", monitor.health_signal)
+
+    def _shard_stats(self):
+        """Per-shard bytes of the CURRENT index (None when it is not
+        mesh-sharded): the device monitor's ``shard_bytes_d*`` /
+        ``shard_imbalance_milli`` feed."""
+        fn = getattr(self._retriever, "shard_stats", None)
+        return fn() if fn is not None else None
 
     def mark_warm(self) -> None:
         """Declare serve warm-up complete: the compile watchdog flags
@@ -730,7 +755,7 @@ class TfidfServer:
 
     def _index_arrays(self):
         r = self._retriever
-        if hasattr(r, "index_arrays"):   # segmented IndexView
+        if hasattr(r, "index_arrays"):   # a retriever, view or sharded
             return r.index_arrays()
         return [r._ids, r._weights, r._head, r._idf]
 
