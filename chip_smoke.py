@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line:
+Phases, each printed as one JSON line (``at_s``: seconds since the script
+started):
 
 1. ``env``: torch/CUDA versions, the card and its power limit; builds the
    CUDA kernels from ``tfidf_tpu_torch/csrc`` with nvcc (sm_90a).
@@ -71,9 +72,10 @@ Phases, each printed as one JSON line:
    B1 / B3 launched, the three wires give identical words, df and
    lengths, the ragged run equals the port's CPU run (``compare_topk``)
    and ``TfidfPipeline.run`` on the same documents. Prints the wall
-   (after one cold ragged run; the bytes and padded wires run once
-   each), docs/s, phases and the result's fields per wire, and a device
-   profile of one warm ragged run.
+   (after one cold ragged run over the 32,768-doc directory, one chunk
+   of the same shape; each wire runs once), docs/s, phases and the
+   result's fields per wire, and a device profile of one warm ragged
+   run over the 32,768-doc directory (one chunk).
 8. ``path_ingest_streaming``: the 32,768-doc corpus in the streaming
    regime (``TFIDF_TPU_RESIDENT_ELEMS`` below it, 4 chunks of 8,192, the
    triple cache sized for 2 of them), spill host and reread, ragged and
@@ -87,7 +89,7 @@ Phases, each printed as one JSON line:
    equal the Q = 64 search; a snapshot restored on the CPU and an
    8,192-doc index built on both devices agree with the card
    (``compare_search``). Prints index seconds, warm search latency
-   (medians of 10) and qps with the median host time of
+   (medians of 3) and qps with the median host time of
    ``fill_query_matrix`` inside those
    searches, that time alone, a device profile of one warm Q = 64
    search, B6's launches in such a search timed by CUDA events (a sleep
@@ -109,9 +111,9 @@ Phases, each printed as one JSON line:
    finishes to the same DF and words; ``sparse_df``'s share of one
    update's device span; one dense minibatch at V 4,096 (B2) and
    ``TfidfVectorizer.fit_transform``'s [8,192, 4,096] matrix (B2), both
-   equal to the CPU; ``cli stream`` over the 32,768-doc directory, then
-   a run killed hard after its 2nd checkpoint and resumed with
-   ``--resume``: the same output bytes.
+   equal to the CPU; ``cli stream`` over the 32,768-doc directory while
+   a run in a subprocess is killed hard after its 2nd checkpoint, then
+   resumed with ``--resume``: the same output bytes.
 12. ``path_segmented``: ``SegmentedIndex.from_corpus`` over the 131,072
    documents (delta 1,024, compact_at 4), 96 mutation calls of 64 docs
    (4,096 adds, 1,024 updates, 1,024 deletes), a compaction whenever the
@@ -125,11 +127,11 @@ Phases, each printed as one JSON line:
 13. ``path_exact_terms``: ``rerank.exact_terms_lines`` (k 16, doc_len
    256, chunks of 32,768, the ``cli run --exact-terms`` config: V 2^16,
    a 4 x k margin) on the 131,072 ingest documents: the device-exact
-   engine cold, then warm with its launches counted (B4 every chunk of
-   the intern wire, B1 in the exact-ids finish); the hashed re-rank
-   engine at V 4,096 (more words than buckets: the intern table
-   overflows, the ids-only ingest runs with B4 and B1); on the
-   32,768-doc directory the card's lines equal the CPU's byte for byte,
+   engine once with its launches counted (B4 every chunk of
+   the intern wire, B1 in the exact-ids finish); on the 32,768-doc
+   directory the hashed re-rank engine at V 4,096 (more words than
+   buckets: the intern table overflows, the ids-only ingest runs with B4
+   and B1), the card's lines equal to the CPU's byte for byte,
    every line is a line of the native bit-reference's output
    (``native/tfidf_ref.cc``, built by ``ops/_build.py``), the exact
    recall is 1.0 on every doc, and the hashed engine's recall is
@@ -154,10 +156,11 @@ Phases, each printed as one JSON line:
    nine ``python -m tfidf_tpu_torch.cli`` subprocesses without
    ``--device`` over the 32,768 files at once (``cli_commands``: ``run
    --doc-len 256`` plain, ``--mesh 1,1,1`` and ``--ingest-workers 4``;
-   ``query`` and ``stream`` plain and ``--mesh-docs 1``; ``serve
-   --doc-len 256`` plain and ``--mesh-shards 1`` on one set of request
-   lines), the mesh runs' bytes held to the plain ones' here and in the
-   next three phases. ``ShardedPipeline.run_packed`` of the 32,768-doc
+   ``query`` and ``stream`` with ``--mesh-docs 1``; ``serve --doc-len
+   256`` plain and ``--mesh-shards 1`` on one set of request lines;
+   ``serve --delta-docs 1024`` with and without ``--replicas 2`` on
+   path_replicas' script), each checked here or in the next four
+   phases. ``ShardedPipeline.run_packed`` of the 32,768-doc
    batch, sparse at docs 4 (B1 and B3 once a shard) and dense at {docs
    2, vocab 2} (B2 a shard, at id offsets 0 and 2,048) and {docs 2, seq
    2}; the golden 64 docs at docs 4 (``golden_output``'s bytes); both
@@ -169,7 +172,7 @@ Phases, each printed as one JSON line:
    triples cached, the rest re-read) equal to the single-device
    streaming run.
 16. ``path_multiprocess``: ``run_sharded_ingest`` over the 131,072 files
-   with 2 and then 4 worker processes sharing the card, ``repeat`` 2:
+   with 2 and then 4 worker processes sharing the card, one run each:
    the merged result equal to ``path_ingest_resident``'s; B4, B1 and B3
    launched in every worker; each worker's walls, upload seconds,
    link utilization, reserved bytes and the card's bytes in use.
@@ -198,7 +201,29 @@ Phases, each printed as one JSON line:
    docs=2)``, world 2: the card once a rank) running the mesh ingest of
    the 32,768 files, each rank's DF, words, scores and lengths equal to
    the single-device run's.
-18. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
+18. ``path_replicas``: the replicated front on the card. Tier A: a
+   snapshot of the retrieval index; ``ReplicatedFront`` of 2 replica
+   processes on it (the device defaulted: cuda), spans on, an armed
+   fault (``replica_prepare`` of replica 2 at boot 0); each replica's
+   boot seconds and the card's bytes in use (``mem_get_info``) before
+   and after; 64 queries one a request and in batches of 16, tfidf and
+   bm25, each answer bit-equal to a direct search; path_serve's load (8
+   clients x 32 requests) through ``handle_request`` beside the same
+   load on one in-process ``TfidfServer`` (p50, p99, queries/s); the
+   first ``swap_index`` to the 32,768-doc directory aborted with every
+   replica on epoch 0 and answers still flowing; replica 2's restart
+   from the snapshot; the retried swap committing epoch 1, each
+   replica's answers then equal to a direct search of
+   ``index_dir(small)``; ``trace_export`` with the front and both
+   replicas (clock samples); ``replica_info``: no build after a
+   warm-up, B6 in each replica, B4 in each at the swap. Tier B (run
+   with the other CLI runs): ``cli serve --delta-docs 1024 --replicas
+   2`` over the 32,768 files on a script of queries, ``add_docs``
+   (1,120 docs), ``delete_docs``, ``compact``, the queries again,
+   ``trace_export`` and ``replica_info``, every answer equal to the
+   same script in one ``cli serve`` process. The kernels line counts
+   the replicas' launches from their ``replica_info``.
+19. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
    131,072-doc index at ``ServeConfig`` defaults (max_batch 256), warmed
    over every query bucket, under 8 client threads of 32 requests each
    (1-4 of the Zipf queries, k 10, tfidf / bm25 / tfidf + id_range in
@@ -268,7 +293,7 @@ RETR_CHUNK = 8192         # path_retrieval: 16 chunks of the ingest corpus
 RETR_TILE = 4096          # the default doc tile (TFIDF_TPU_QUERY_BLOCK)
 RETR_K = 10
 RETR_QUERIES = 256
-RETR_REPS = 10            # path_retrieval: timed searches a median
+RETR_REPS = 3             # path_retrieval: timed searches a median
 RETR_SMALL = 8192         # path_retrieval: the index built on both devices
 STREAM_BATCH = 8192       # path_stream: 16 minibatches of the ingest corpus
 STREAM_SAVE_AT = 7        # path_stream: save_state after minibatch 7
@@ -286,7 +311,12 @@ B6_TIMED_Q = {"tfidf": (64, RETR_QUERIES, 1, 512), "bm25": (64, RETR_QUERIES)}
 FP32_FMA_PER_S = 67e12 / 2
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:  # when each phase line is printed, from the start
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1139,8 +1169,10 @@ def path_ragged_batch(T, K, corpus, cfg, total):
           "launches": launches, "equal_to_packed": True, "ok": True})
 
 
-def path_ingest_resident(T, K, FT, ingest, root, corpus_docs, total):
-    """run_overlapped on INGEST_DOCS documents, once per wire."""
+def path_ingest_resident(T, K, FT, ingest, root, corpus_docs, total,
+                         warm_root):
+    """run_overlapped on INGEST_DOCS documents, once per wire, after one
+    cold run over ``warm_root`` (one chunk of the same shape)."""
     from tfidf_tpu_torch.parity import compare_topk
     n = len(corpus_docs)
     cfg = {w: T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
@@ -1155,7 +1187,8 @@ def path_ingest_resident(T, K, FT, ingest, root, corpus_docs, total):
     results, per_wire = {}, {}
     for w in cfg:
         if w == "ragged":  # cold: the first ingest pays the set-up
-            run[w]()
+            ingest.run_overlapped(warm_root, cfg[w], chunk_docs=N_DOCS,
+                                  doc_len=DOC_LEN)
         r, wall, launches, native = _counted_run(K, FT, run[w])
         for kernel, c in launches.items():
             total[kernel] += c
@@ -1199,13 +1232,16 @@ def path_ingest_resident(T, K, FT, ingest, root, corpus_docs, total):
                            batch.topk_vals, token_ids=tok, lengths=lens,
                            df=rg.df, num_docs=n, wire_dtype=np.float16)
     check(vs_pipe["ok"], f"path_ingest_resident: vs TfidfPipeline.run: {vs_pipe}")
-    prof = profile_summary(run["ragged"])
+    # one warm ragged run over one chunk (the 32,768-doc directory)
+    prof = profile_summary(lambda: ingest.run_overlapped(
+        warm_root, cfg["ragged"], chunk_docs=N_DOCS, doc_len=DOC_LEN),
+        warm_up=False)
     emit({"phase": "path_ingest_resident", "docs": n, "chunk_docs": N_DOCS,
           "doc_len": DOC_LEN, "vocab": SPARSE_VOCAB, "topk": TOPK,
-          "cold_runs": ["ragged"],
+          "cold_runs": ["ragged, the 32,768-doc directory"],
           "wires": per_wire, "wires_identical": True, "vs_cpu": vs_cpu,
           "vs_tfidf_pipeline": vs_pipe,
-          "device_profile_ragged": prof, "ok": True})
+          "device_profile_ragged_32768": prof, "ok": True})
     return rg
 
 
@@ -1467,7 +1503,7 @@ def path_retrieval(T, K, root, corpus_docs, total):
             launches_per_search[f"{name}/Q{q}"] = launches["tile_scores"]
             with timed_calls(R, "fill_query_matrix") as fills:
                 ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw),
-                             reps=RETR_REPS, warmup=2)
+                             reps=RETR_REPS, warmup=1)
             # one fill a search: the median of the loop's calls, warm-ups in
             latency[f"{name}/Q{q}"] = {"ms": ms, "qps": q / ms * 1e3,
                                        "fill_ms": statistics.median(fills)}
@@ -1709,8 +1745,9 @@ def path_stream(T, K, root, corpus_docs, ingest_df, total):
           "path_stream: the vectorizer's [D, V] differs from the CPU run")
     del mat, cmat
 
-    # cli stream over the streaming-ingest directory: uninterrupted, then
-    # killed after minibatch STREAM_CLI_KILL and resumed
+    # cli stream over the streaming-ingest directory: uninterrupted (in
+    # process) while a subprocess is killed after minibatch
+    # STREAM_CLI_KILL, then resumed
     args = ["stream", "--input", root, "--batch-docs", str(bsz),
             "--doc-len", str(DOC_LEN), "--vocab-size", str(SPARSE_VOCAB),
             "--topk", str(TOPK)]
@@ -1718,17 +1755,25 @@ def path_stream(T, K, root, corpus_docs, ingest_df, total):
     with tempfile.TemporaryDirectory(dir=os.path.dirname(root)) as tmp:
         full, killed_out = (os.path.join(tmp, f) for f in ("a.txt", "b.txt"))
         ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", KILL_AFTER_SAVES, str(STREAM_CLI_KILL)]
+            + args + ["--output", killed_out, "--checkpoint", ck],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
         ((rc, _), cli_s, cli_launches) = counted(
             lambda: _quiet(cli.main, args + ["--output", full]))
+        try:
+            _, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        killed = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                             None, err)
+        killed_s = time.perf_counter() - t0
         check(rc == 0 and cli_launches["fused_score_topk"] > 0
               and cli_launches["pack_words"] > 0,
               f"path_stream: cli stream rc {rc}, launches {cli_launches}")
-        t0 = time.perf_counter()
-        killed = subprocess.run(
-            [sys.executable, "-c", KILL_AFTER_SAVES, str(STREAM_CLI_KILL)]
-            + args + ["--output", killed_out, "--checkpoint", ck],
-            cwd=REPO, capture_output=True, text=True, timeout=600)
-        killed_s = time.perf_counter() - t0
         check(killed.returncode == 137 and not os.path.exists(killed_out),
               f"path_stream: the killed run exited {killed.returncode}: "
               f"{killed.stderr[-2000:]}")
@@ -2038,11 +2083,11 @@ def _exact_cfg(T, vocab: int):
 
 def path_exact_terms(T, K, FT, ingest, big, small, total):
     """``rerank.exact_terms_lines`` on the card: the device-exact engine
-    on the 131,072-doc directory (cold, then warm with its launches
-    counted: B4 every chunk, B1 in the finish), the hashed re-rank
+    on the 131,072-doc directory (its launches counted: B4 every chunk,
+    B1 in the finish); on the 32,768-doc directory the hashed re-rank
     engine at V 4,096 (more words than buckets: the intern table
-    overflows and the ids-only ingest runs, B4 and B1), and on the
-    32,768-doc directory the card's lines equal to the CPU's, every line
+    overflows and the ids-only ingest runs, B4 and B1), the card's lines
+    equal to the CPU's, every line
     in the native oracle's output, exact recall 1.0 on every doc, the
     hashed engine's recall, ``profile_resident`` on the ragged wire and
     ``cli run --exact-terms`` in a subprocess on cuda."""
@@ -2058,9 +2103,6 @@ def path_exact_terms(T, K, FT, ingest, big, small, total):
         return rerank.exact_terms_lines(root, c, TOPK, doc_len=DOC_LEN,
                                         chunk_docs=N_DOCS, **kw)
 
-    t0 = time.perf_counter()
-    lines_of(big, cfg)  # cold: the first run pays its set-up
-    cold_s = time.perf_counter() - t0
     with returned_calls(ingest, "run_overlapped_exact") as ingests, \
             returned_calls(FT.InternSession, "emit") as emits:
         (lines, engine, _), wall, launches, _ = _counted_run(
@@ -2073,17 +2115,19 @@ def path_exact_terms(T, K, FT, ingest, big, small, total):
     exact = ingests[0][1]
     check(exact.num_docs == n and len(exact.words) <= N_WORDS,
           "path_exact_terms: device-exact ingest fields")
-    device_exact = {"docs": n, "cold_s": cold_s, "warm_wall_s": wall,
+    device_exact = {"docs": n, "wall_s": wall,
                     "docs_per_s": n / wall, "launches": launches,
                     "ingest_s": ingests[0][0], "emit_s": emits[0][0],
                     "phases": exact.phases, "distinct_words":
                         len(exact.words), "lines": lines.count(b"\n"),
                     "bytes": len(lines)}
 
+    # The hashed engine on the 32,768-doc directory (V 4,096: more words
+    # than buckets); its lines feed the recall below.
     hcfg = _exact_cfg(T, EXACT_HASHED_VOCAB)
     with returned_calls(ingest, "run_overlapped") as ids_runs:
-        (hlines, hengine, _), hwall, hlaunches, _ = _counted_run(
-            K, FT, lambda: lines_of(big, hcfg))
+        (hlines, hengine, hsample), hwall, hlaunches, _ = _counted_run(
+            K, FT, lambda: lines_of(small, hcfg))
     for kernel, c in hlaunches.items():
         total[kernel] += c
     check(hengine == "hashed-rerank", f"path_exact_terms: V "
@@ -2095,15 +2139,14 @@ def path_exact_terms(T, K, FT, ingest, big, small, total):
     for k_ in ("ragged_rebuild", "fused_score_topk"):
         check(hlaunches[k_] > 0, f"path_exact_terms: hashed engine: {k_} "
               f"never launched")
-    hashed = {"docs": n, "vocab": EXACT_HASHED_VOCAB, "wall_s": hwall,
-              "docs_per_s": n / hwall, "launches": hlaunches,
+    hashed = {"docs": N_DOCS, "vocab": EXACT_HASHED_VOCAB, "wall_s": hwall,
+              "docs_per_s": N_DOCS / hwall, "launches": hlaunches,
               "ingest_s": ids_runs[0][0], "ids_only_fields": _result_fields(r),
               "lines": hlines.count(b"\n")}
 
     # 32,768 docs: card = CPU, the oracle, recall, the profiler, the CLI.
     # The card's run is profiled; then the native oracle and the CLI run
-    # in subprocesses while the CPU run, the hashed engine and the phase
-    # profile run here.
+    # in subprocesses while the CPU run and the phase profile run here.
     names = [f"doc{i}" for i in range(1, N_DOCS + 1)]
     small_out = []
     K.reset_launches()
@@ -2143,7 +2186,6 @@ def path_exact_terms(T, K, FT, ingest, big, small, total):
         cpu_s = time.perf_counter() - t0
         check(cpu_engine == "device-exact" and cpu_lines == lines_s,
               "path_exact_terms: the card's lines differ from the CPU's")
-        hl, _, hsample = lines_of(small, hcfg)
         K.reset_launches()
         resident_profile = ingest.profile_resident(small, prof_cfg,
                                                    chunk_docs=STREAM_CHUNK,
@@ -2187,13 +2229,12 @@ def path_exact_terms(T, K, FT, ingest, big, small, total):
                     "exact_recall": 1.0, "recall_docs": len(defined),
                     "hashed_rerank_recall_mean": float(np.mean(hrec)),
                     "hashed_rerank_recall_min": float(np.min(hrec)),
-                    "hashed_rerank_lines": hl.count(b"\n"),
+                    "hashed_rerank_lines": hlines.count(b"\n"),
                     "profile_resident_ragged": resident_profile,
                     "device_profile_device_exact": device_profile},
           "cli": {"docs": N_DOCS, "seconds": cli_s, "bytes_equal": True,
                   "device": "cuda", "stderr_tail": proc.stderr[-400:]},
-          "beside_the_oracle_and_cli": ["cpu run", "hashed engine",
-                                        "profile_resident"],
+          "beside_the_oracle_and_cli": ["cpu run", "profile_resident"],
           "seconds": time.perf_counter() - t_phase, "ok": True})
 
 
@@ -2358,7 +2399,7 @@ def path_chargram(T, K, FT, total):
 
 MESH_SHARDS = 4           # path_mesh: virtual shards of the one card
 MP_WORKERS = (2, 4)       # path_multiprocess: worker processes
-MP_REPEAT = 2             # path_multiprocess: timed runs in each worker
+MP_REPEAT = 1             # path_multiprocess: timed runs in each worker
 
 
 def _same_topk(a, b, n: int) -> bool:
@@ -2416,12 +2457,14 @@ def query_args(small, queries) -> list:
 
 
 def cli_commands(small, queries) -> dict:
-    """The CLI runs the mesh, multi-process, mesh-serve and serve phases
-    check, over the 32,768 files: ``run --doc-len 256`` plain, with
-    ``--mesh 1,1,1`` and with ``--ingest-workers 4``; ``query`` and
-    ``stream`` with ``--mesh-docs 1`` (their plain runs are
+    """The CLI runs the mesh, multi-process, mesh-serve, replicas and
+    serve phases check, over the 32,768 files: ``run --doc-len 256``
+    plain, with ``--mesh 1,1,1`` and with ``--ingest-workers 4``;
+    ``query`` and ``stream`` with ``--mesh-docs 1`` (their plain runs are
     path_mesh_serve's and path_stream's, in process); ``serve --doc-len
-    256`` plain and with ``--mesh-shards 1`` on the same request lines."""
+    256`` plain and with ``--mesh-shards 1`` on the same request lines;
+    ``serve --delta-docs 1024`` with ``--replicas 2`` (a front and two
+    replica processes) and without, on path_replicas' script."""
     run = ["run", "--input", small, "--output", "{out}", "--vocab-mode",
            "hashed", "--topk", str(TOPK), "--doc-len", str(DOC_LEN)]
     # path_stream's cli stream arguments
@@ -2443,7 +2486,8 @@ def cli_commands(small, queries) -> dict:
                              + ["--mesh-docs", "1"], None),
             "stream_mesh_1": (stream + ["--mesh-docs", "1"], None),
             "serve_single": (serve, lines),
-            "serve_mesh_1": (serve + ["--mesh-shards", "1"], lines)}
+            "serve_mesh_1": (serve + ["--mesh-shards", "1"], lines),
+            **replica_cli_commands(small, queries)}
 
 
 def path_mesh(T, K, ingest, corpus, gold, big, small, rg, streamed,
@@ -2778,7 +2822,7 @@ def gloo_ranks(T, ingest, small, total) -> dict:
 
 
 def path_mesh_serve(T, K, _build, ingest, r, cfg, queries, big_docs, seg_idx,
-                    small, small_corpus, total, cli, stream_cli):
+                    small, small_corpus, total, cli, stream_cli, load):
     """The search side of the mesh on MESH_SERVE_SHARDS virtual shards of
     the card: MeshShardedRetriever, TfidfRetriever(plan=), a sharded
     segmented view, a served load, the server's install paths under
@@ -2910,11 +2954,9 @@ def path_mesh_serve(T, K, _build, ingest, r, cfg, queries, big_docs, seg_idx,
 
     # 4. path_serve's depth-1 load, once on the index and once on its 4
     # shards
-    requests = serve_requests(np.random.default_rng(SEED + 7), queries)
+    requests, direct = load
     n_requests = sum(len(x) for x in requests)
     n_queries = sum(len(qs) for reqs in requests for qs, _ in reqs)
-    direct = [[r.search(qs, k=RETR_K, **kw) for qs, kw in reqs]
-              for reqs in requests]
     loads = {}
     for label, index in (("single", r), ("sharded", sharded)):
         srv = TfidfServer(index, ServeConfig(pipeline_depth=1))
@@ -3038,7 +3080,7 @@ def path_mesh_serve(T, K, _build, ingest, r, cfg, queries, big_docs, seg_idx,
     check_serve_threads_gone("the mesh_shards servers")
     installs["mutations"] = mutations
     out["installs_mesh_shards_1"] = installs
-    del new, restored
+    del restored
 
     # 6. the mesh stream over the 32,768 docs: sparse at docs 4 (B1, B3 a
     # shard), dense at {docs 2, vocab 2} (B2 at each vocab offset)
@@ -3125,6 +3167,7 @@ def path_mesh_serve(T, K, _build, ingest, r, cfg, queries, big_docs, seg_idx,
           "devices": [str(d) for d in plan.devices], "k": RETR_K, **out,
           "bit_equal": True, "seconds": time.perf_counter() - t_phase,
           "ok": True})
+    return new
 
 
 # --- path_serve: TfidfServer over the retrieval index, cli serve ------
@@ -3148,6 +3191,16 @@ def serve_requests(rng, queries):
             reqs.append((qs, SERVE_MIX[(t + i) % len(SERVE_MIX)]))
         out.append(reqs)
     return out
+
+
+def served_load_and_direct(r, queries):
+    """path_serve's load (serve_requests at seed SEED + 7) and each
+    request's direct search of ``r``: the answers path_mesh_serve,
+    path_replicas and path_serve hold their served loads to."""
+    requests = serve_requests(np.random.default_rng(SEED + 7), queries)
+    direct = [[r.search(qs, k=RETR_K, **kw) for qs, kw in reqs]
+              for reqs in requests]
+    return requests, direct
 
 
 def serve_load(srv, requests):
@@ -3279,7 +3332,8 @@ def serve_lines(run) -> dict:
     return by_id
 
 
-def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total, cli):
+def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total, cli,
+               load):
     """TfidfServer over the retrieval index under concurrent load at
     pipeline depth 1 and 2 (every answer equal to a direct search),
     the cache, admission and a swap to the 32,768-doc directory (B4), a
@@ -3293,7 +3347,7 @@ def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total, cli):
 
     t_phase = time.perf_counter()
     n = r._num_docs
-    requests = serve_requests(np.random.default_rng(SEED + 7), queries)
+    requests, direct = load
     n_requests = sum(len(x) for x in requests)
     n_queries = sum(len(qs) for reqs in requests for qs, _ in reqs)
     out = {}
@@ -3358,8 +3412,8 @@ def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total, cli):
     out["breakdown_depth1"] = serve_breakdown(r, requests)
     # every served answer equals a direct search, at both depths
     for t, reqs in enumerate(requests):
-        for i, (qs, kw) in enumerate(reqs):
-            want = r.search(qs, k=RETR_K, **kw)
+        for i in range(len(reqs)):
+            want = direct[t][i]
             for depth in (1, 2):
                 check(_same_search(answers_by_depth[depth][t][i], want),
                       f"path_serve depth {depth}: request {t}/{i} differs "
@@ -3521,6 +3575,398 @@ def path_serve(T, K, r, cfg, queries, small_dir, small_corpus, total, cli):
           "threads": SERVE_THREADS, "requests_per_thread": SERVE_REQUESTS,
           "mix": ["tfidf", "bm25", "tfidf+id_range"], **out,
           "served_equals_direct": True, "depth2_equals_depth1": True,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+
+
+# --- path_replicas: the replicated front, 2 replica processes on the card --
+
+REPLICAS = 2              # path_replicas: replica processes on the one card
+REPLICA_QUERIES = 64      # path_replicas: queries held to a direct search
+REPLICA_BATCH = 16        # path_replicas: queries a batched request
+REPLICA_CHAOS = "replica_prepare:fatal:n=1:match=replica=2 boot=0"
+REPLICA_WAIT_S = 300      # path_replicas: the deadline of every wait
+REPLICA_CLI_DELTA = 1024  # path_replicas tier B: --delta-docs
+REPLICA_CLI_ADDS = 1088   # tier B: new docs (fills and seals the delta)
+REPLICA_CLI_UPDATES = 32  # tier B: existing names re-added
+REPLICA_CLI_DELETES = 64  # tier B: names deleted
+
+
+def replica_cli_commands(small, queries) -> dict:
+    """Tier B of path_replicas, run with the other CLI runs: ``cli serve
+    --delta-docs 1024`` over the 32,768 files with ``--replicas 2`` (a
+    fresh ``--snapshot-dir``: replica 1 builds and snapshots, replica 2
+    restores) and without, on one script: queries, ``add_docs`` (new
+    docs past the delta's capacity, and updates), ``delete_docs``,
+    ``compact``, the queries again, ``trace_export``, ``replica_info``
+    and ``shutdown``."""
+    rng = np.random.default_rng(SEED + 9)
+    new = zipf_docs(rng, REPLICA_CLI_ADDS + REPLICA_CLI_UPDATES)
+    names = [f"added{j}" for j in range(REPLICA_CLI_ADDS)] + [
+        f"doc{j}" for j in rng.permutation(N_DOCS)[:REPLICA_CLI_UPDATES] + 1]
+    doomed = [f"doc{j}" for j in
+              rng.permutation(N_DOCS)[:REPLICA_CLI_DELETES] + 1]
+
+    def asked(tag):
+        return [{"id": f"{tag}{i}", "queries": [queries[i]], "k": RETR_K,
+                 **SERVE_MIX[i % len(SERVE_MIX)]}
+                for i in range(SERVE_CLI_QUERIES)]
+
+    script = asked("a") + [
+        {"id": "add", "op": "add_docs",
+         "docs": [{"name": nm, "text": d.decode()}
+                  for nm, d in zip(names, new)]},
+        {"id": "delete", "op": "delete_docs", "names": doomed},
+        {"id": "compact", "op": "compact"}] + asked("b") + [
+        {"id": "trace", "op": "trace_export"},
+        {"id": "info", "op": "replica_info"}, {"op": "shutdown"}]
+    lines = "\n".join(json.dumps(x) for x in script) + "\n"
+    serve = ["serve", "--input", small, "--doc-len", str(DOC_LEN), "-k",
+             str(RETR_K), "--canary-period-ms", "0", "--delta-docs",
+             str(REPLICA_CLI_DELTA)]
+    snap = os.path.join(os.path.dirname(small), "replica_cli_snapshot")
+    return {"serve_replicas": (serve + ["--replicas", str(REPLICAS),
+                                        "--snapshot-dir", snap], lines),
+            "serve_segmented": (serve, lines)}
+
+
+def served_rows(resp, what: str):
+    """A response's results as (names, float32 score bits) per query."""
+    check("results" in resp, f"path_replicas: {what}: {resp}")
+    return [([nm for nm, _ in row],
+             np.array([v for _, v in row], np.float32).view(np.uint32))
+            for row in resp["results"]]
+
+
+def direct_rows(r, res):
+    """A direct search's (vals, ids) in :func:`served_rows`' form."""
+    vals, ids = res
+    return [([r.names[int(d)] for d in irow if d >= 0],
+             np.asarray(vrow, np.float32)[np.asarray(irow) >= 0].view(
+                 np.uint32))
+            for vrow, irow in zip(vals, ids)]
+
+
+def same_rows(a, b) -> bool:
+    return len(a) == len(b) and all(
+        na == nb and np.array_equal(va, vb) for (na, va), (nb, vb)
+        in zip(a, b))
+
+
+def front_load(front, requests):
+    """serve_load's clients, each request through the front's
+    ``handle_request`` (the protocol dict). Returns the responses, each
+    request's host latency in ms and the wall seconds of the load."""
+    answers = [[None] * len(reqs) for reqs in requests]
+    lat_ms, errors = [], []
+    lock = threading.Lock()
+
+    def client(t):
+        try:
+            for i, (qs, kw) in enumerate(requests[t]):
+                t0 = time.perf_counter()
+                answers[t][i] = front.handle_request(
+                    {"queries": list(qs), "k": RETR_K, **kw},
+                    timeout_s=REPLICA_WAIT_S)
+                with lock:
+                    lat_ms.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(len(requests))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"path_replicas: a client failed: {errors[:3]}")
+    return answers, lat_ms, wall
+
+
+def load_figures(lat_ms, wall, n_requests, n_queries) -> dict:
+    return {"requests": n_requests, "queries": n_queries, "wall_s": wall,
+            "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+            "latency_ms_p99": float(np.percentile(lat_ms, 99)),
+            "requests_per_s": n_requests / wall,
+            "queries_per_s": n_queries / wall}
+
+
+def replica_launches(info) -> dict:
+    """rN -> (boot, launches since its warm-up) from replica_info."""
+    return {label: (v["boot"], v["compiled_programs"]["launches"])
+            for label, v in info.items()}
+
+
+def path_replicas(T, K, _build, r, cfg, queries, big, small, total, cli,
+                  load, new):
+    """The replicated tier on the card. Tier A, the library: a
+    ReplicatedFront of 2 replica processes restored from a snapshot of
+    the retrieval index, its answers bit-equal to a direct search,
+    path_serve's load beside one in-process server, an armed fault that
+    aborts the first swap, the supervised restart, the retried swap to
+    the 32,768-doc directory (``new``: that directory's ``index_dir`` on
+    the card, the replicas' own call), the fleet trace export and each
+    replica's launches. Tier B, the CLI: ``serve --replicas 2`` on a
+    segmented index (run with the other CLI runs) against the same
+    script served in one process."""
+    from tfidf_tpu_torch import obs
+    from tfidf_tpu_torch.config import ServeConfig
+    from tfidf_tpu_torch.parallel.multihost import _card_bytes_in_use
+    from tfidf_tpu_torch.serve import (ReplicatedFront, SwapAborted,
+                                       TfidfServer)
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    # Both libraries exist before any replica starts (built at first use
+    # when missing), so no replica builds one after its warm-up.
+    _build.load()
+    _build.load_host()
+    requests, direct = load
+    n_requests = sum(len(x) for x in requests)
+    n_queries = sum(len(qs) for reqs in requests for qs, _ in reqs)
+    want = [[direct_rows(r, res) for res in row] for row in direct]
+    out = {}
+
+    # The same load on one in-process server, alone on the card.
+    srv = TfidfServer(r, ServeConfig())
+    try:
+        b = 1
+        while b <= srv.config.max_batch:
+            r.search([""] * b, k=RETR_K)
+            b *= 2
+        srv.mark_warm()
+        answers, lat_ms, wall = serve_load(srv, requests)
+    finally:
+        srv.close()
+    for t, reqs in enumerate(requests):
+        for i in range(len(reqs)):
+            check(same_rows(direct_rows(r, answers[t][i]), want[t][i]),
+                  f"path_replicas: in-process request {t}/{i} differs")
+    out["in_process_load"] = load_figures(lat_ms, wall, n_requests,
+                                          n_queries)
+
+    # Tier A: the snapshot, then the front on it.
+    root = os.path.dirname(small)
+    snap = os.path.join(root, "replica_snapshot")
+    t0 = time.perf_counter()
+    r.snapshot(snap)
+    out["snapshot_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    bytes_before = _card_bytes_in_use(cuda)
+    prev_tracer = obs.get_tracer()
+    obs.set_tracer(obs.Tracer(), None)  # the front's span ring
+    front = ReplicatedFront(big, cfg, ServeConfig(
+        replicas=REPLICAS, snapshot_dir=snap, disttrace=True,
+        faults=REPLICA_CHAOS), k=RETR_K, doc_len=DOC_LEN)
+    spawned, ready = {}, {}
+    real_spawn, real_await = front._spawn, front._await_ready
+
+    def spawn(rank, bootstrap):
+        spawned[(rank, front._replicas[rank].boot + 1)] = time.perf_counter()
+        return real_spawn(rank, bootstrap)
+
+    def await_ready(rank):
+        real_await(rank)
+        ready[(rank, front._replicas[rank].boot)] = time.perf_counter()
+
+    front._spawn, front._await_ready = spawn, await_ready
+    try:
+        t0 = time.perf_counter()
+        front.start()
+        out["start_s"] = time.perf_counter() - t0
+        out["boot_s"] = {f"r{rank}": ready[(rank, 0)] - spawned[(rank, 0)]
+                         for rank in range(1, REPLICAS + 1)}
+        desc = front.describe()
+        check(desc["live"] == REPLICAS and front.epoch == 0,
+              f"path_replicas: the tier did not come up: {desc}")
+
+        # Answers: one query a request and batches, tfidf and bm25.
+        asked = queries[:REPLICA_QUERIES]
+        checked = 0
+        for kw in ({}, {"scorer": "bm25"}):
+            batches = [[q] for q in asked] + [
+                asked[i:i + REPLICA_BATCH]
+                for i in range(0, len(asked), REPLICA_BATCH)]
+            for qs in batches:
+                resp = front.handle_request(
+                    {"queries": qs, "k": RETR_K, **kw},
+                    timeout_s=REPLICA_WAIT_S)
+                check(resp.get("epoch") == 0, f"path_replicas: epoch "
+                      f"{resp.get('epoch')}")
+                check(same_rows(served_rows(resp, "answers"), direct_rows(
+                    r, r.search(qs, k=RETR_K, **kw))),
+                    f"path_replicas: {kw} {len(qs)} queries differ from a "
+                    f"direct search")
+                checked += 1
+
+        # path_serve's load through the front.
+        answers, lat_ms, wall = front_load(front, requests)
+        for t, reqs in enumerate(requests):
+            for i in range(len(reqs)):
+                check(answers[t][i].get("epoch") == 0
+                      and same_rows(served_rows(answers[t][i], "load"),
+                                    want[t][i]),
+                      f"path_replicas: served request {t}/{i} differs from "
+                      f"a direct search")
+        out["front_load"] = load_figures(lat_ms, wall, n_requests, n_queries)
+        out["front_load"]["routed"] = {
+            f"r{k}": v["routed"]
+            for k, v in front.describe()["replicas"].items()}
+        out["queries_per_s_ratio"] = (
+            out["front_load"]["queries_per_s"]
+            / out["in_process_load"]["queries_per_s"])
+        torch.cuda.synchronize()
+        bytes_live = _card_bytes_in_use(cuda)
+        out["card_bytes"] = {
+            "before": bytes_before, "live": bytes_live,
+            "per_replica": (bytes_live - bytes_before) / REPLICAS}
+        info_pre = front.replica_info()
+        pre = replica_launches(info_pre)
+
+        # Chaos: replica 2 dies between its prepare ack and the commit.
+        t0 = time.perf_counter()
+        try:
+            front.swap_index(small)
+            aborted = False
+        except SwapAborted:
+            aborted = True
+        t_abort = time.perf_counter()
+        check(aborted, "path_replicas: the armed swap was not aborted")
+        out["aborted_swap_s"] = t_abort - t0
+        check(front.epoch == 0 and all(
+            rep["epoch"] == 0 for rep in front.describe()["replicas"]
+            .values()), "path_replicas: a replica left epoch 0 after the "
+            "abort")
+        for q in asked[:16]:
+            resp = front.handle_request({"queries": [q], "k": RETR_K},
+                                        timeout_s=REPLICA_WAIT_S)
+            check(resp.get("epoch") == 0 and same_rows(
+                served_rows(resp, "after the abort"),
+                direct_rows(r, r.search([q], k=RETR_K))),
+                "path_replicas: an answer after the abort differs")
+
+        # The supervised restart from the snapshot.
+        deadline = time.perf_counter() + REPLICA_WAIT_S
+        while time.perf_counter() < deadline:
+            d = front.describe()["replicas"]
+            if d["2"]["state"] == "live" and d["2"]["boot"] >= 1:
+                break
+            time.sleep(0.05)
+        d = front.describe()["replicas"]
+        check(d["2"]["state"] == "live" and d["2"]["boot"] == 1
+              and d["2"]["epoch"] == 0,
+              f"path_replicas: replica 2 did not restart: {d['2']}")
+        out["restart"] = {"since_abort_s": ready[(2, 1)] - t_abort,
+                          "boot_s": ready[(2, 1)] - spawned[(2, 1)]}
+        mid = replica_launches(front.replica_info())
+
+        # The retried swap commits epoch 1 on every replica.
+        t0 = time.perf_counter()
+        epoch = front.swap_index(small)
+        out["swap_s"] = time.perf_counter() - t0
+        check(epoch == 1 and front.epoch == 1 and all(
+            rep["epoch"] == 1 for rep in front.describe()["replicas"]
+            .values()), "path_replicas: the retried swap did not commit")
+        for rank in range(1, REPLICAS + 1):
+            for kw in ({}, {"scorer": "bm25"}):
+                resp = front.handle_request(
+                    {"queries": asked, "k": RETR_K, **kw}, rank=rank,
+                    timeout_s=REPLICA_WAIT_S)
+                check(resp.get("epoch") == 1 and same_rows(
+                    served_rows(resp, "after the swap"),
+                    direct_rows(new, new.search(asked, k=RETR_K, **kw))),
+                    f"path_replicas: replica {rank} after the swap differs "
+                    f"from a direct search of the new index ({kw})")
+
+        bundle = front.trace_export()
+        procs = {p["process"]: p for p in bundle["processes"]}
+        check(set(procs) == {"front", "r1", "r2"},
+              f"path_replicas: trace_export processes {sorted(procs)}")
+        for label in ("r1", "r2"):
+            check(procs[label]["clock"]["samples"] > 0,
+                  f"path_replicas: {label} has no clock samples")
+        out["trace_export"] = {
+            label: {"events": len(p["traceEvents"]), "clock": p.get("clock")}
+            for label, p in procs.items()}
+
+        info = front.replica_info()
+        end = replica_launches(info)
+        for label, v in info.items():
+            check(v["recompiles_after_warm"] == 0,
+                  f"path_replicas: {label} built after its warm-up")
+            boot, launches = end[label]
+            check(launches["tile_scores"] > 0,
+                  f"path_replicas: {label} never launched tile_scores")
+            check(mid[label][0] == boot and launches["ragged_rebuild"]
+                  > mid[label][1]["ragged_rebuild"],
+                  f"path_replicas: {label}'s swap never launched "
+                  f"ragged_rebuild")
+        check(pre["r2"][0] == 0 and pre["r2"][1]["tile_scores"] > 0,
+              "path_replicas: r2 served nothing before the chaos")
+        launches = {kernel: end["r1"][1][kernel] + end["r2"][1][kernel]
+                    + pre["r2"][1][kernel] for kernel in K.LAUNCHES}
+        out["replica_info"] = info
+        out["launches"] = launches
+        out["describe"] = front.describe()
+    finally:
+        front.close()
+        obs.set_tracer(prev_tracer)
+    check(all(rep.proc is None or rep.proc.poll() is not None
+              for rep in front._replicas.values()),
+          "path_replicas: a replica process outlived close()")
+    check_serve_threads_gone("the front's in-process server")
+
+    # Tier B: cli serve --replicas 2 against the same script in one process.
+    tier_b, plain = cli["serve_replicas"], cli["serve_segmented"]
+    check(f"front serving {REPLICAS} replica(s)" in tier_b["stderr"],
+          "path_replicas: cli serve --replicas printed no front banner")
+    by, ref = serve_lines(tier_b), serve_lines(plain)
+    for tag in ("a", "b"):
+        for i in range(SERVE_CLI_QUERIES):
+            a, b = by.get(f"{tag}{i}", {}), ref.get(f"{tag}{i}", {})
+            check("results" in a and a.get("results") == b.get("results"),
+                  f"path_replicas: cli --replicas line {tag}{i} differs "
+                  f"from the in-process serve: {str(a)[:200]}")
+            check(a.get("epoch") == (0 if tag == "a" else 3),
+                  f"path_replicas: cli line {tag}{i} epoch {a.get('epoch')}")
+    check(by["add"].get("replicas") == REPLICAS
+          and by["add"].get("added") == REPLICA_CLI_ADDS
+          and by["add"].get("updated") == REPLICA_CLI_UPDATES
+          and by["delete"].get("deleted") == REPLICA_CLI_DELETES
+          and by["compact"].get("epoch") == 3,
+          f"path_replicas: cli mutations {by['add']}, {by['delete']}, "
+          f"{by['compact']}")
+    cli_info = by["info"]["replica_info"]
+    check(set(cli_info) == {"r1", "r2"}, f"path_replicas: cli replica_info "
+          f"{sorted(cli_info)}")
+    cli_launches = {kernel: 0 for kernel in K.LAUNCHES}
+    for label, v in cli_info.items():
+        check(v["recompiles_after_warm"] == 0 and v["epoch"] == 3,
+              f"path_replicas: cli {label}: {v}")
+        got = v["compiled_programs"]["launches"]
+        check(got["tile_scores"] > 0,
+              f"path_replicas: cli {label} never launched tile_scores")
+        for kernel, c in got.items():
+            cli_launches[kernel] += c
+    cli_procs = {p["process"] for p in
+                 by["trace"]["trace_export"]["processes"]}
+    check({"r1", "r2"} <= cli_procs,
+          f"path_replicas: cli trace_export {sorted(cli_procs)}")
+    out["cli"] = {"seconds": tier_b["seconds"],
+                  "in_process_seconds": plain["seconds"],
+                  "concurrent_cli_runs": tier_b["concurrent"],
+                  "epochs": [by["add"]["epoch"], by["delete"]["epoch"],
+                             by["compact"]["epoch"]],
+                  "replica_info": cli_info, "launches": cli_launches,
+                  "stderr_tail": tier_b["stderr"][-600:]}
+    for kernel in K.LAUNCHES:
+        total[kernel] += launches[kernel] + cli_launches[kernel]
+    emit({"phase": "path_replicas", "docs": r._num_docs,
+          "replicas": REPLICAS, "k": RETR_K, "threads": SERVE_THREADS,
+          "requests_per_thread": SERVE_REQUESTS, "answer_checks": checked,
+          **out, "served_equals_direct": True,
           "seconds": time.perf_counter() - t_phase, "ok": True})
 
 
@@ -3697,7 +4143,8 @@ def main() -> int:
         emit({"phase": "ingest_corpora", "docs": [INGEST_DOCS, N_DOCS],
               "bytes": [sum(map(len, big_docs)), sum(map(len, corpus.docs))],
               "write_s": time.perf_counter() - t0})
-        rg = path_ingest_resident(T, K, FT, ingest, big, big_docs, total)
+        rg = path_ingest_resident(T, K, FT, ingest, big, big_docs, total,
+                                  small)
         streamed = path_ingest_streaming(T, K, FT, ingest, small, total)
         r, rcfg, queries = path_retrieval(T, K, big, big_docs, total)
         from tfidf_tpu_torch.models import retrieval as R
@@ -3711,12 +4158,17 @@ def main() -> int:
         path_mesh(T, K, ingest, corpus, gold, big, small, rg, streamed,
                   chargram, total, cli)
         path_multiprocess(T, K, _build, big, rg, total, cli)
-        path_mesh_serve(T, K, _build, ingest, r, rcfg, queries, big_docs,
-                        seg_idx, small, corpus, total, cli, stream_cli)
+        load = served_load_and_direct(r, queries)
+        small_r = path_mesh_serve(T, K, _build, ingest, r, rcfg, queries,
+                                  big_docs, seg_idx, small, corpus, total,
+                                  cli, stream_cli, load)
         del seg_idx
+        path_replicas(T, K, _build, r, rcfg, queries, big, small, total, cli,
+                      load, small_r)
+        del small_r
         # last: its profile of a multi-threaded load runs after every
         # other profile of the script
-        path_serve(T, K, r, rcfg, queries, small, corpus, total, cli)
+        path_serve(T, K, r, rcfg, queries, small, corpus, total, cli, load)
         del r
 
     sources = {"fused_score_topk": ("tfidf_tpu_torch/csrc/score_topk.cu",

@@ -93,7 +93,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tfidf_tpu_torch/parallel/sharded.py",
                  "tfidf_tpu_torch/parallel/multihost.py",
                  # the search side of the parallel paths
-                 "tfidf_tpu_torch/parallel/serving.py"):
+                 "tfidf_tpu_torch/parallel/serving.py",
+                 # the replicated serving front
+                 "tfidf_tpu_torch/serve/front.py"):
         assert path in rel
     offenders = []
     for path in files:
@@ -478,9 +480,18 @@ class TestNotPortedYet:
     @pytest.mark.parametrize("member", ["ReplicatedFront", "FrontError",
                                         "SwapAborted"])
     def test_serving_front(self, member):
+        # Ported now (ROADMAP A8b): the port's own classes, with the JAX
+        # package's names, bases and public surface.
+        from tfidf_tpu import serve as jserve
         from tfidf_tpu_torch import serve
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            getattr(serve, member)
+        cls, jcls = getattr(serve, member), getattr(jserve, member)
+        assert cls.__module__ == "tfidf_tpu_torch.serve.front"
+        assert ([b.__name__ for b in cls.__mro__]
+                == [b.__name__ for b in jcls.__mro__])
+
+        def public(c):
+            return {n for n in vars(c) if not n.startswith("_")}
+        assert public(cls) == public(jcls)
 
     @pytest.mark.parametrize("flags,item", [
         (["--replicas", "2", "--snapshot-dir", "snap"], "ROADMAP A8b"),
@@ -491,16 +502,42 @@ class TestNotPortedYet:
                                monkeypatch, capsys):
         argv = ["serve", "--input", toy_corpus_dir, "--device", "cpu",
                 *flags]
-        if item == "ROADMAP A8b":
-            with pytest.raises(NotImplementedError, match=item):
-                cli.main(argv)
-            return
-        # Ported now (ROADMAP A9b): serve --mesh-shards serves the index
-        # doc-sharded, with the unsharded server's answers.
         import io
         import json
         lines = [json.dumps({"id": 1, "queries": ["tpu mesh", "kernel"],
                              "k": 3}), json.dumps({"op": "shutdown"})]
+        if item == "ROADMAP A8b":
+            # Ported now (ROADMAP A8b): --replicas runs the replicated
+            # tier and --replica-timeout-s alone changes nothing, as in
+            # the JAX CLI; the answers are the unreplicated server's and
+            # the JAX CLI's (names exact, scores within 1e-6). The JAX
+            # side runs without --replicas: its tier would spawn JAX
+            # replicas.
+            from tfidf_tpu.cli import main as jax_main
+            monkeypatch.chdir(os.path.dirname(toy_corpus_dir))
+            monkeypatch.setenv("TFIDF_TPU_LOG_ECHO", "off")
+            runs = []
+            for main, args in ((cli.main, argv[:5]), (cli.main, argv),
+                               (jax_main, argv[:3] + (
+                                   [] if "--replicas" in flags else flags))):
+                monkeypatch.setattr("sys.stdin",
+                                    io.StringIO("\n".join(lines) + "\n"))
+                assert main(args) == 0
+                out = capsys.readouterr()
+                runs.append([json.loads(x)["results"]
+                             for x in out.out.splitlines() if x])
+                if main is cli.main and args is argv:
+                    assert ("front serving 2 replica(s)" in out.err) == (
+                        "--replicas" in flags)
+            plain, ours, theirs = runs
+            assert ours == plain and plain[0][0]
+            for a, b in zip(plain[0], theirs[0]):
+                assert [n for n, _ in a] == [n for n, _ in b]
+                np.testing.assert_allclose([s for _, s in a],
+                                           [s for _, s in b], atol=1e-6)
+            return
+        # Ported now (ROADMAP A9b): serve --mesh-shards serves the index
+        # doc-sharded, with the unsharded server's answers.
         answers = []
         for extra in ([], flags):
             monkeypatch.setattr("sys.stdin",
@@ -523,8 +560,24 @@ class TestNotPortedYet:
         r = T.TfidfRetriever(T.PipelineConfig(vocab_mode=VocabMode.HASHED),
                              device="cpu").index_dir(toy_corpus_dir)
         if item == "ROADMAP A8b":
-            with pytest.raises(NotImplementedError, match=item):
-                TfidfServer(r, ServeConfig(**kw))
+            # Ported now (ROADMAP A8b): the server accepts replicas and
+            # ignores it, as the JAX server does; the same answers.
+            from tfidf_tpu.config import PipelineConfig as JConfig
+            from tfidf_tpu.config import ServeConfig as JServeConfig
+            from tfidf_tpu.config import VocabMode as JVocab
+            from tfidf_tpu.models import TfidfRetriever as JRetriever
+            from tfidf_tpu.serve import TfidfServer as JServer
+            j = JRetriever(JConfig(vocab_mode=JVocab.HASHED)).index_dir(
+                toy_corpus_dir)
+            with TfidfServer(r, ServeConfig(**kw)) as srv, \
+                    JServer(j, JServeConfig(**kw)) as jsrv:
+                got = srv.search(["tpu mesh", "kernel"], k=3, timeout=30)
+                for a, b in zip(got, r.search(["tpu mesh", "kernel"], k=3)):
+                    np.testing.assert_array_equal(a, b)
+                want = jsrv.search(["tpu mesh", "kernel"], k=3, timeout=30)
+                np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+                np.testing.assert_allclose(got[0], np.asarray(want[0]),
+                                           atol=1e-6)
             return
         # Ported now (ROADMAP A9b): the server shards the index
         with TfidfServer(r, ServeConfig(**kw)) as srv:

@@ -531,10 +531,28 @@ class TestServeIntegration:
             assert server.compile_watch.recompile_count == 0
 
     def test_replicas_still_not_ported(self):
-        single = port_index(*make_corpus(4, seed=22))
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            TfidfServer(single, ServeConfig(mesh_shards=2, replicas=2,
-                                            snapshot_dir="snap"))
+        # Ported now (ROADMAP A8b): a mesh_shards server with replicas
+        # set is built as the JAX package builds it: replicas is the
+        # front's field and the server ignores it, so the index is
+        # doc-sharded and answers as the JAX sharded server does.
+        from tfidf_tpu.config import ServeConfig as JServeConfig
+        from tfidf_tpu.serve import TfidfServer as JServer
+        names, docs = make_corpus(4, seed=22)
+        single = port_index(names, docs)
+        kw = dict(mesh_shards=2, replicas=2, snapshot_dir="snap",
+                  max_batch=8, max_wait_ms=5, cache_entries=0)
+        j = JRetriever(JCFG).index(JCorpus(names=names, docs=docs))
+        with TfidfServer(single, ServeConfig(**kw)) as server, \
+                JServer(j, JServeConfig(**kw)) as jserver:
+            _, installed = server.current_index()
+            _, jinstalled = jserver.current_index()
+            assert isinstance(installed, MeshShardedRetriever)
+            assert installed.n_shards == jinstalled.n_shards == 2
+            for scorer in SCORERS:
+                got = server.search(QUERIES, k=3, scorer=scorer, timeout=T)
+                assert_same(got, single.search(QUERIES, k=3, scorer=scorer))
+                assert_agree(got, jserver.search(QUERIES, k=3, scorer=scorer,
+                                                 timeout=T), scorer)
 
 
 _GLOO_SEARCH = r"""

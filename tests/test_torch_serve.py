@@ -694,8 +694,26 @@ class TestTfidfServer:
     def test_not_ported_options_raise(self, retriever, kw, item):
         cfg = ServeConfig(**kw)          # the dataclass accepts them
         if item == "ROADMAP A8b":
-            with pytest.raises(NotImplementedError, match=item):
-                TfidfServer(retriever, cfg)
+            # Ported now (ROADMAP A8b): a TfidfServer accepts replicas
+            # and ignores it, as the JAX server does (the replicated
+            # tier is ReplicatedFront); answers equal the JAX server's.
+            j = JRetriever(JConfig(vocab_mode=JVocab.HASHED, vocab_size=512,
+                                   max_doc_len=16, doc_chunk=16)).index(
+                JCorpus(names=CORPUS.names, docs=CORPUS.docs))
+            with TfidfServer(retriever, cfg) as srv, \
+                    JServer(j, JServeConfig(**kw)) as jsrv:
+                assert srv.config.replicas == jsrv.config.replicas == 2
+                assert srv.current_index()[1] is retriever
+                for scorer in (None, "bm25"):
+                    got = srv.search(QUERIES, k=3, scorer=scorer, timeout=T)
+                    assert_identical(got, retriever.search(QUERIES, k=3,
+                                                           scorer=scorer))
+                    want = jsrv.search(QUERIES, k=3, scorer=scorer,
+                                       timeout=T)
+                    cmp = compare_search(got[0], got[1], np.asarray(want[0]),
+                                         np.asarray(want[1]),
+                                         val_ulps=4 if scorer else 0)
+                    assert cmp["ok"], cmp
             return
         # Ported now (ROADMAP A9b): the index is served doc-sharded (0:
         # every device, one CPU shard here), answers unchanged

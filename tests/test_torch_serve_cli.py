@@ -13,13 +13,19 @@ tfidf_tpu.cli serve``, in process with stdin monkeypatched, on the CPU.
 * ``--mesh-shards N`` (0 = every device) serves the index doc-sharded
   with the JAX CLI's answers (the JAX side on its forced CPU devices);
   the devmon op reports the shards.
+* ``trace_export`` answers the JAX CLI's bundle (empty with no tracer).
+* ``--replicas 2 --snapshot-dir D`` runs the replicated tier (a front and
+  2 replica processes on the CPU): a script of queries, ``add_docs``,
+  ``delete_docs``, ``compact`` and the front's ops answers as the
+  in-process ``serve`` of the port and of the JAX package do;
+  ``--replica-timeout-s`` alone serves as the JAX CLI does.
 * Without ``--device`` and without a GPU the command raises "no CUDA
-  device available"; ``--replicas`` / ``--replica-timeout-s`` raise
-  naming ROADMAP A8b.
+  device available", with ``--replicas`` before any replica is spawned.
 """
 
 import io
 import json
+import os
 import socket
 import threading
 
@@ -286,9 +292,30 @@ def test_without_device_and_without_gpu_raises(corpus_dir, monkeypatch,
 def test_not_ported_flags_raise(corpus_dir, monkeypatch, capsys, flag,
                                 item):
     if item == "ROADMAP A8b":
-        with pytest.raises(NotImplementedError, match=item):
-            _port([json.dumps({"op": "shutdown"})],
-                  ["--input", corpus_dir, *flag], monkeypatch, capsys)
+        # Ported now (ROADMAP A8b): --replicas serves through the
+        # replicated tier, --replica-timeout-s alone through one server,
+        # each with the JAX CLI's answers (the JAX side without
+        # --replicas: its tier would spawn JAX replicas).
+        monkeypatch.chdir(os.path.dirname(corpus_dir))
+        monkeypatch.setenv("TFIDF_TPU_LOG_ECHO", "off")
+        lines = [json.dumps({"id": i, **req})
+                 for i, req in enumerate(REQUESTS["tfidf"] + REQUESTS["bm25"]
+                                         + REQUESTS["filters"])]
+        lines.append(json.dumps({"op": "shutdown"}))
+        argv = ["--input", corpus_dir, *BASE, *flag]
+        rc_t, got, err = _port(lines, argv, monkeypatch, capsys)
+        jflag = [] if "--replicas" in flag else flag
+        rc_j, want, _ = _jax(lines, ["--input", corpus_dir, *BASE, *jflag],
+                             monkeypatch, capsys)
+        assert rc_t == rc_j == 0
+        assert ("front serving 2 replica(s)" in err) == ("--replicas" in flag)
+        got, want = _by_id(got), _by_id(want)
+        for i in range(len(lines) - 1):
+            a, b = got[i], want[i]
+            assert "results" in a and "results" in b, (a, b)
+            cmp = compare_search(*_as_search(a["results"]),
+                                 *_as_search(b["results"]), val_ulps=4)
+            assert cmp["ok"], (a, b, cmp)
         return
     # Ported now (ROADMAP A9b): --mesh-shards serves doc-sharded with the
     # JAX CLI's answers; the devmon op reports the shards.
@@ -387,3 +414,115 @@ def test_sigterm_dumps_the_flight_recorder(corpus_dir, tmp_path):
     lines = flight.read_text().splitlines()
     assert json.loads(lines[0])["schema"] == "tfidf-flight/1"
     assert any(json.loads(x).get("event") == "sigterm" for x in lines[1:])
+
+
+def test_trace_export_answers_as_the_jax_cli(corpus_dir, monkeypatch,
+                                             capsys):
+    # No tracer armed in either package: both answer an empty bundle.
+    from tfidf_tpu import obs as jobs
+    monkeypatch.delenv("TFIDF_TPU_TRACE", raising=False)
+    obs.set_tracer(None)
+    jobs.set_tracer(None)
+    lines = [json.dumps({"id": 1, "op": "trace_export"}),
+             json.dumps({"op": "shutdown"})]
+    argv = ["--input", corpus_dir, *BASE]
+    rc_t, got, _ = _port(lines, argv, monkeypatch, capsys)
+    rc_j, want, _ = _jax(lines, argv, monkeypatch, capsys)
+    assert rc_t == rc_j == 0
+    a, b = _by_id(got)[1], _by_id(want)[1]
+    assert a.keys() == b.keys() == {"id", "trace_export"}
+    assert a["trace_export"].keys() == b["trace_export"].keys()
+    assert a["trace_export"]["schema"] == b["trace_export"]["schema"] \
+        == "tfidf-trace/1"
+    assert a["trace_export"]["processes"] == [] \
+        == b["trace_export"]["processes"]
+
+
+def _results_by_id(resp):
+    return {r["id"]: r["results"] for r in resp if "results" in r}
+
+
+def test_replicas_answer_as_the_in_process_serve(corpus_dir, tmp_path,
+                                                 monkeypatch, capsys):
+    # A segmented tier of 2 replica processes on the CPU: queries, then
+    # add_docs / delete_docs / compact (each a two-phase epoch bump),
+    # queries again, and the front's own ops. The in-process serve of
+    # either package answers the same queries the same way (it has no
+    # compact op and answers that line with an error). The front answers
+    # each line before it reads the next.
+    monkeypatch.setenv("TFIDF_TPU_LOG_ECHO", "off")
+    queries = [{"queries": ["apple", "kiwi date"], "k": 4},
+               {"queries": ["banana fig"], "k": 3, "scorer": "bm25"},
+               {"queries": ["zebra apple", "lemon"], "k": 5}]
+    script = [{"id": f"a{i}", **q} for i, q in enumerate(queries)]
+    script += [
+        {"id": "add", "op": "add_docs", "docs": [
+            {"name": "doc7", "text": "zebra kiwi kiwi"},
+            {"name": "doc8", "text": "apple zebra lemon"},
+            {"name": "doc2", "text": "zebra fig"}]},
+        {"id": "del", "op": "delete_docs", "names": ["doc3", "ghost"]},
+        {"id": "compact", "op": "compact"}]
+    script += [{"id": f"b{i}", **q} for i, q in enumerate(queries)]
+    script += [{"id": "trace", "op": "trace_export"},
+               {"id": "info", "op": "replica_info"}, {"op": "shutdown"}]
+    lines = [json.dumps(x) for x in script]
+    # a delta of 2 docs: the adds seal a segment, so compact merges
+    argv = ["--input", corpus_dir, *BASE, "--delta-docs", "2"]
+    rc, front, err = _port(lines, argv + [
+        "--replicas", "2", "--snapshot-dir", str(tmp_path / "snap")],
+        monkeypatch, capsys)
+    assert rc == 0 and "front serving 2 replica(s) on cpu" in err
+    rc_t, single, _ = _port(lines, argv, monkeypatch, capsys)
+    rc_j, jax_single, _ = _jax(lines, argv, monkeypatch, capsys)
+    # The JAX in-process serve has answered a query admitted before a
+    # mutation line on the mutated index, so its answers to the first
+    # queries come from those queries alone.
+    rc_k, jax_first, _ = _jax(lines[:len(queries)] + [lines[-1]], argv,
+                              monkeypatch, capsys)
+    assert rc_t == rc_j == rc_k == 0
+    by = _by_id(front)
+    assert by["add"]["epoch"] == 1 and by["add"]["replicas"] == 2
+    assert (by["add"]["added"], by["add"]["updated"]) == (2, 1)
+    assert (by["del"]["deleted"], by["del"]["missing"],
+            by["del"]["epoch"]) == (1, 1, 2)
+    assert by["compact"]["epoch"] == 3 and by["compact"]["replicas"] == 2
+    for i in range(len(queries)):
+        assert by[f"a{i}"]["epoch"] == 0 and by[f"b{i}"]["epoch"] == 3
+    info = by["info"]["replica_info"]
+    assert set(info) == {"r1", "r2"}
+    assert all(v["recompiles_after_warm"] == 0 and v["epoch"] == 3
+               for v in info.values())
+    procs = by["trace"]["trace_export"]
+    assert procs["schema"] == "tfidf-trace/1"
+    assert {p["process"] for p in procs["processes"]} == {"r1", "r2"}
+    # every answer equals the in-process serve's bit for bit, and the
+    # JAX CLI's by name (scores within compare_search's bounds)
+    ours, plain = _results_by_id(front), _results_by_id(single)
+    theirs = {**_results_by_id(jax_single), **_results_by_id(jax_first)}
+    assert ours.keys() == plain.keys() == theirs.keys()
+    assert ours == plain
+    for key, res in ours.items():
+        assert ([[n for n, _ in row] for row in res]
+                == [[n for n, _ in row] for row in theirs[key]])
+        for row, jrow in zip(res, theirs[key]):
+            np.testing.assert_allclose([s for _, s in row],
+                                       [s for _, s in jrow], rtol=1e-5,
+                                       atol=1e-6)
+    assert "doc8" in {n for n, _ in ours["b0"][0]}
+    assert all(n != "doc3" for i in range(len(queries))
+               for row in ours[f"b{i}"] for n, _ in row)
+
+
+def test_replicas_without_device_fail_before_any_spawn(
+        corpus_dir, tmp_path, monkeypatch, capsys):
+    from tfidf_tpu_torch.serve import front
+    spawned = []
+    monkeypatch.setattr(front, "launch_rank",
+                        lambda *a, **kw: spawned.append(a))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device available"):
+        _port([json.dumps({"op": "shutdown"})],
+              ["--input", corpus_dir, "--replicas", "2", "--snapshot-dir",
+               str(tmp_path / "snap")], monkeypatch, capsys, device=False)
+    assert spawned == [] and not (tmp_path / "snap").exists()
+    assert capsys.readouterr().out == ""

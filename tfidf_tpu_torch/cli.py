@@ -67,15 +67,18 @@ per result, as the JAX CLI's ``query`` does.
     python -m tfidf_tpu_torch.cli serve --input DIR [-k K] [--doc-len L]
         [--max-batch N] [--max-wait-ms MS] [--queue-depth N]
         [--serve-pipeline-depth D] [--delta-docs N] [--snapshot-dir DIR]
-        [--mesh-shards N] [--port P] [--device cuda|cpu] ...
+        [--mesh-shards N] [--replicas N [--replica-timeout-s S]]
+        [--port P] [--device cuda|cpu] ...
 
 indexes the directory (or restores ``--snapshot-dir``) and serves it
 through ``serve.TfidfServer``: one JSON request per line on stdin (or on
 TCP with ``--port``), one JSON response line each, in completion order —
 the JAX CLI's ``serve`` protocol and ops (``--help`` lists them).
 ``--mesh-shards N`` serves the index doc-sharded over N devices (0 =
-all; ``parallel.serving``). ``--replicas`` and ``--replica-timeout-s``
-raise naming ROADMAP A8b.
+all; ``parallel.serving``). ``--replicas N`` (or ``TFIDF_TPU_REPLICAS``,
+with ``--snapshot-dir``) makes this process the front of N replica
+processes (``serve.ReplicatedFront``), each a full server on the device,
+which is resolved before any replica is spawned.
 
 ``--compile-cache DIR`` (``run``, ``query``, ``serve``) is accepted so
 that the JAX CLI's command lines run unchanged; the port compiles no
@@ -109,6 +112,8 @@ protocol (one JSON object per line):
   {"op": "metrics"}       -> {"metrics": {...}}
   {"op": "metrics_prom"}  -> {"metrics_prom": "..."}
   {"op": "obs_export"}    -> {"obs_export": {"schema": "tfidf-obs/1", ...}}
+  {"op": "trace_export"}  -> {"trace_export": {"schema": "tfidf-trace/1",
+      "processes": [...]}}  (the span rings; empty when no tracer is armed)
   {"op": "healthz"}       -> {"healthz": {"status": "ok", ...}}
   {"op": "readyz"}        -> {"readyz": {"ready": true, ...}}
   {"op": "canary"}        -> {"canary": {"parity": 1.0}}
@@ -120,6 +125,12 @@ protocol (one JSON object per line):
   {"op": "delete_docs", "names": [N, ...]}
       -> {"deleted": 1, "missing": 0, "epoch": N}
   {"op": "shutdown"}      -> drains in-flight work and exits
+with --replicas, the front also answers:
+  {"op": "replica_info"}  -> {"replica_info": {"r1": {"epoch": N,
+      "compiled_programs": {"libraries": [...], "launches": {...}},
+      "recompiles_after_warm": 0, ...}, ...}}
+  {"op": "compact"}       -> {"epoch": N, "replicas": N}
+      (and every index change commits tier-wide as a two-phase epoch bump)
 Responses come back in completion order; correlate by "id".
 """
 
@@ -404,12 +415,17 @@ def _build_parser() -> argparse.ArgumentParser:
                          "compactor merges them (default 4; env "
                          "TFIDF_TPU_COMPACT_AT; needs --delta-docs)")
     sv.add_argument("--replicas", type=int, default=None, metavar="N",
-                    help="replicated serving tier (not ported yet: "
-                         "ROADMAP A8b)")
+                    help="replicated serving tier: N full server "
+                         "processes on the device behind a front that "
+                         "owns this protocol (hash-affinity routing, "
+                         "two-phase epoch bumps, restarts from "
+                         "--snapshot-dir, which it needs; env "
+                         "TFIDF_TPU_REPLICAS)")
     sv.add_argument("--replica-timeout-s", type=float, default=None,
                     metavar="S",
-                    help="replicated tier patience (not ported yet: "
-                         "ROADMAP A8b)")
+                    help="front-side patience per replica: boot, "
+                         "response and control round trip (default "
+                         "120; env TFIDF_TPU_REPLICA_TIMEOUT_S)")
     sv.add_argument("--scorer", metavar="SPEC", default=None,
                     help="default scoring-family member for requests that "
                          "name none: 'tfidf', 'bm25' or "
@@ -503,6 +519,21 @@ def _serve_handle_line(server, line, write, default_k, build_retriever,
         return True
     if op == "obs_export":
         write({"id": req.get("id"), "obs_export": server.obs_export()})
+        return True
+    if op == "trace_export":
+        # The replica half of the fleet span pull: the front's
+        # trace_export() collects this bundle over the SAME data plane
+        # as obs_export and stamps identity + clock offset on each
+        # entry. A process with no armed tracer answers an empty
+        # bundle (never an error — the merge just has one fewer lane).
+        from tfidf_tpu_torch import obs
+        t = obs.get_tracer()
+        procs = ([{**t.export_meta(), "traceEvents": t.chrome_events()}]
+                 if t is not None else [])
+        write({"id": req.get("id"),
+               "trace_export": {"schema": "tfidf-trace/1",
+                                "pid": os.getpid(),
+                                "processes": procs}})
         return True
     if op == "healthz":
         write({"id": req.get("id"), "healthz": server.healthz()})
@@ -679,11 +710,8 @@ def _run_serve(args) -> int:
     from tfidf_tpu_torch.pipeline import resolve_device
     from tfidf_tpu_torch.serve import TfidfServer
 
-    if args.replicas is not None or args.replica_timeout_s is not None:
-        raise NotImplementedError(
-            "serve --replicas/--replica-timeout-s (the replicated serving "
-            "front) is not ported yet: ROADMAP A8b")
-    # Fail before any work when no device was named and there is no GPU.
+    # Fail before any work (and before any replica is spawned) when no
+    # device was named and there is no GPU.
     device = resolve_device(args.device)
     if args.score_tiling is not None:
         # The knob is read at dispatch time, so the env var is the one
@@ -712,10 +740,18 @@ def _run_serve(args) -> int:
                    else args.disttrace == "on"),
         pipeline_depth=args.serve_pipeline_depth,
         mesh_shards=args.mesh_shards,
+        replicas=args.replicas,
+        replica_timeout_s=args.replica_timeout_s,
         scorer=args.scorer, bm25_k1=args.bm25_k1, bm25_b=args.bm25_b)
     if serve_cfg.disttrace is not None:
         from tfidf_tpu_torch.obs import disttrace
         disttrace.configure(serve_cfg.disttrace)
+
+    if serve_cfg.replicas:
+        # Replicated tier: this process becomes the FRONT. It owns the
+        # protocol and the replicas own the indexes; nothing below
+        # (restore, warm, canary, compactor) happens here.
+        return _run_serve_front(args, cfg, serve_cfg, device)
 
     # A committed snapshot (either package's) with a matching config
     # fingerprint restores the resident index without reading the
@@ -960,6 +996,54 @@ def _serve_tcp(handle_line, port, on_close) -> int:
         finally:
             on_close()
     return 0
+
+
+def _run_serve_front(args, cfg, serve_cfg, device) -> int:
+    """--replicas mode: this process is the replicated tier's FRONT.
+    It holds no index: it spawns N replica processes on ``device`` off
+    --snapshot-dir, routes the JSONL protocol across them, and
+    supervises restarts."""
+    import json
+    import threading
+
+    from tfidf_tpu_torch.serve import FrontError, ReplicatedFront
+
+    front = ReplicatedFront(args.input, cfg, serve_cfg, k=args.k,
+                            no_strict=args.no_strict,
+                            doc_len=args.doc_len, device=device)
+    prev_term = _install_sigterm_dump()
+    try:
+        try:
+            front.start()
+        except FrontError as e:
+            sys.stderr.write(f"front failed to start: {e}\n")
+            front.close()
+            return 3
+        sys.stderr.write(
+            f"front serving {front.n_replicas} replica(s) on {device} "
+            f"(epoch={front.epoch}, "
+            f"snapshot={serve_cfg.snapshot_dir}, "
+            f"restart_budget={serve_cfg.restart_budget}, "
+            f"timeout_s={serve_cfg.replica_timeout_s})\n")
+        if args.port is not None:
+            return _serve_tcp(front.handle_line, args.port,
+                              front.close)
+        wlock = threading.Lock()
+
+        def write(obj) -> None:
+            with wlock:
+                sys.stdout.write(json.dumps(obj) + "\n")
+                sys.stdout.flush()
+
+        try:
+            for line in sys.stdin:
+                if not front.handle_line(line, write):
+                    break
+        finally:
+            front.close()
+        return 0
+    finally:
+        _restore_sigterm(prev_term)
 
 
 def _write_topk(path: str, result) -> None:

@@ -208,9 +208,14 @@ class ServeConfig:
         stage and its drain worker; 1 = dispatch and materialize one
         batch at a time. ``--serve-pipeline-depth`` /
         ``TFIDF_TPU_SERVE_PIPELINE``.
-      replicas, replica_timeout_s: accepted and validated; serving with
-        ``replicas`` set raises ``NotImplementedError`` (the replicated
-        front is ROADMAP A8b). ``--replicas`` / ``TFIDF_TPU_REPLICAS``.
+      replicas: N replica processes behind one
+        :class:`~tfidf_tpu_torch.serve.front.ReplicatedFront` (needs
+        ``snapshot_dir``, the shared snapshot every replica restores
+        from); ``TfidfServer`` ignores it. ``--replicas`` /
+        ``TFIDF_TPU_REPLICAS``.
+      replica_timeout_s: the front's patience with one replica (boot,
+        a request, a control op). ``--replica-timeout-s`` /
+        ``TFIDF_TPU_REPLICA_TIMEOUT_S``.
       scorer, bm25_k1, bm25_b: the default scoring-family member for
         requests that name none. ``--scorer`` / ``--bm25-k1`` /
         ``--bm25-b``, ``TFIDF_TPU_SCORER`` / ``TFIDF_TPU_BM25_K1`` /

@@ -12,6 +12,10 @@ caching, admission, supervision, canary probes.
   occupancy, queue depth, shed/cache counters;
 * :mod:`~tfidf_tpu_torch.serve.canary` — parity probes replaying pinned
   golden queries against the swap-time oracle;
+* :mod:`~tfidf_tpu_torch.serve.front` — the replicated tier:
+  :class:`ReplicatedFront` runs N full servers as worker processes
+  behind one lightweight front (hash-affinity routing, two-phase epoch
+  swaps, restart supervision, merged metrics and traces);
 * :mod:`~tfidf_tpu_torch.serve.supervisor` — bounded retry, a circuit
   breaker, poison-query bisection + quarantine.
 
@@ -19,9 +23,7 @@ Every :class:`TfidfServer` carries a
 :class:`~tfidf_tpu_torch.obs.health.HealthMonitor` (``healthz`` /
 ``readyz``), with ``degraded`` shrinking the admission bound. The entry
 point is ``python -m tfidf_tpu_torch.cli serve`` (a JSONL loop over
-stdin or TCP). The JAX package's replicated front (``ReplicatedFront``,
-``FrontError``, ``SwapAborted``) is not ported: asking for it raises
-``NotImplementedError`` naming ROADMAP A8b.
+stdin or TCP; ``--replicas N`` runs the replicated tier).
 """
 
 from tfidf_tpu_torch.serve.batcher import (DeadlineExceeded, MicroBatcher,
@@ -35,9 +37,16 @@ from tfidf_tpu_torch.serve.server import TfidfServer
 from tfidf_tpu_torch.serve.supervisor import (CircuitBreaker, QuarantineList,
                                               RetryPolicy,
                                               SupervisedDispatch)
+# front imports the submodules above; keep it LAST so the package
+# namespace is fully populated before it loads.
+from tfidf_tpu_torch.serve.front import (FrontError, ReplicatedFront,
+                                         SwapAborted)
 
 __all__ = [
     "TfidfServer",
+    "ReplicatedFront",
+    "FrontError",
+    "SwapAborted",
     "MicroBatcher",
     "ResultCache",
     "ServeMetrics",
@@ -55,13 +64,3 @@ __all__ = [
     "pinned_queries_from_dir",
 ]
 
-_FRONT_MEMBERS = ("ReplicatedFront", "FrontError", "SwapAborted")
-
-
-def __getattr__(name):  # PEP 562
-    if name in _FRONT_MEMBERS:
-        raise NotImplementedError(
-            f"serve.{name} (the replicated serving front, whose replicas "
-            f"boot through the mpi_lite runtime) is not ported yet: "
-            f"ROADMAP A8b")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

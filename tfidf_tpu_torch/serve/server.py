@@ -40,8 +40,9 @@ Guarantees (the JAX package's, held the same way):
   budget, and :meth:`snapshot` / restore-on-start persist the resident
   index in the JAX package's snapshot format.
 
-Not here: the replicated front (``ServeConfig.replicas`` raises naming
-ROADMAP A8b).
+``ServeConfig.replicas`` is accepted and ignored here, as in the JAX
+package: the replicated tier is :class:`~tfidf_tpu_torch.serve.front.
+ReplicatedFront`, which runs N of these servers in replica processes.
 """
 
 from __future__ import annotations
@@ -100,10 +101,6 @@ class TfidfServer:
             raise ValueError("TfidfServer needs an indexed retriever; "
                              "call index()/index_dir() first")
         self.config = config or ServeConfig.from_env()
-        if self.config.replicas is not None:
-            raise NotImplementedError(
-                "ServeConfig.replicas (the replicated serving front) is "
-                "not ported yet: ROADMAP A8b")
         self.metrics = metrics or ServeMetrics()
         # Mesh-sharded serving: every install path (this constructor,
         # swaps, mutation views) re-shards through the same transform, so
