@@ -150,12 +150,43 @@ started):
    each engine's run on the first 1,024 docs equals the CPU's bit for
    bit; docs/s, MB/s and a device profile of one warm run each; B1 at
    the chargram's row width (12,288 slots) against its plain version.
-15. ``path_mesh``: the mesh run paths on 4 virtual shards of the card
+15. ``path_observe``: what a traced run records, on the card. Among the
+   CLI runs of ``cli_commands`` (below), ``run --doc-len 256`` over the
+   32,768 files runs traced with ``TFIDF_TPU_DEVMON=1`` beside an
+   untraced twin, and the bytes wire's run and the golden batch run over
+   the golden 64 docs (B2) run traced: the bytes the untraced run writes
+   (``golden_output``'s for the golden run); the JAX ingest's
+   span names on the ``main``, ``packer`` and ``drainer`` lanes (the
+   golden run's pipeline phases on ``main``); a byte stamp on every
+   ``dispatch``, ``fetch``, ``drain``, ``slab`` and ``device_tokenize``
+   span and ``costmodel.span_gbps`` of each at most 1.05 x the card's
+   peak; ``phase_b`` no shorter than the scoring kernel's device time;
+   the flight dump beside the trace holding an ``hbm_census`` of more
+   than 0 bytes. The traced and untraced walls side by side (the runs
+   share the card and the host with the other CLI runs). A
+   ``phase_b``-style device span around a sleep kernel closes after the
+   kernel, not at its enqueue. ``tfidf_tpu_torch/tools/trace_capture.py``'s capture of
+   one warm ``run_overlapped`` chunk (the 32,768 files, one chunk of
+   the ingest's shape) on the ragged and bytes wires, each in a process
+   of its own (this one has held many profiler sessions), the two at
+   once beside the oracle check below: its device-op
+   table names B4, B1, B3 (ragged) and B5 (bytes) with calls equal to
+   ``kernels.LAUNCHES`` across the capture; the top 12 rows, and
+   ``costmodel.bytes_model`` at the chunk's shape beside the chunk's
+   device time. ``costmodel.hbm_peak_gbs`` of the card's name is not
+   None (checked at the start: every ``bound_ms`` divides by it). The
+   8,192-doc index of ``path_retrieval`` rebuilt: its searches at Q 1
+   and 64 (tfidf, bm25, tfidf + id_range) give ``scoring.oracle.
+   oracle_topk``'s ids in its tie order, scores allclose (rtol 1e-5,
+   atol 1e-6), the oracle run on the index's arrays copied to the host.
+16. ``path_mesh``: the mesh run paths on 4 virtual shards of the card
    (``MeshPlan.create(docs=4, devices=["cuda:0"] * 4)``), each held bit
-   for bit against the port's single-device run on the card: before it,
-   nine ``python -m tfidf_tpu_torch.cli`` subprocesses without
-   ``--device`` over the 32,768 files at once (``cli_commands``: ``run
-   --doc-len 256`` plain, ``--mesh 1,1,1`` and ``--ingest-workers 4``;
+   for bit against the port's single-device run on the card: before
+   ``path_observe``, twelve ``python -m tfidf_tpu_torch.cli``
+   subprocesses without ``--device`` over the 32,768 files at once
+   (``cli_commands``: ``run --doc-len 256`` traced and untraced, traced
+   on the bytes wire, the golden batch run traced, ``--mesh 1,1,1`` and
+   ``--ingest-workers 4``;
    ``query`` and ``stream`` with ``--mesh-docs 1``; ``serve --doc-len
    256`` plain and ``--mesh-shards 1`` on one set of request lines;
    ``serve --delta-docs 1024`` with and without ``--replicas 2`` on
@@ -171,12 +202,12 @@ started):
    idle share; the streaming mesh over the 32,768 files (2 of 4 chunks'
    triples cached, the rest re-read) equal to the single-device
    streaming run.
-16. ``path_multiprocess``: ``run_sharded_ingest`` over the 131,072 files
+17. ``path_multiprocess``: ``run_sharded_ingest`` over the 131,072 files
    with 2 and then 4 worker processes sharing the card, one run each:
    the merged result equal to ``path_ingest_resident``'s; B4, B1 and B3
    launched in every worker; each worker's walls, upload seconds,
    link utilization, reserved bytes and the card's bytes in use.
-17. ``path_mesh_serve``: the search side of the mesh, each result held
+18. ``path_mesh_serve``: the search side of the mesh, each result held
    bit for bit against one device's. ``make_serving_plan(4)`` raises on
    one card; on ``make_serving_plan(4, devices=["cuda:0"] * 4)``,
    ``shard_index`` of the retrieval index searched at Q 1, 64 and 256,
@@ -201,7 +232,7 @@ started):
    docs=2)``, world 2: the card once a rank) running the mesh ingest of
    the 32,768 files, each rank's DF, words, scores and lengths equal to
    the single-device run's.
-18. ``path_replicas``: the replicated front on the card. Tier A: a
+19. ``path_replicas``: the replicated front on the card. Tier A: a
    snapshot of the retrieval index; ``ReplicatedFront`` of 2 replica
    processes on it (the device defaulted: cuda), spans on, an armed
    fault (``replica_prepare`` of replica 2 at boot 0); each replica's
@@ -223,7 +254,7 @@ started):
    ``trace_export`` and ``replica_info``, every answer equal to the
    same script in one ``cli serve`` process. The kernels line counts
    the replicas' launches from their ``replica_info``.
-19. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
+20. ``path_serve``: ``serve.TfidfServer`` over the retrieval phase's
    131,072-doc index at ``ServeConfig`` defaults (max_batch 256), warmed
    over every query bucket, under 8 client threads of 32 requests each
    (1-4 of the Zipf queries, k 10, tfidf / bm25 / tfidf + id_range in
@@ -276,10 +307,9 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-# int32 multiply-adds per second: 64 INT32 lanes per SM (half the 128
-# FP32 lanes behind the data sheet's 67 TFLOP/s) x 132 SMs x 1.98 GHz.
-INT32_MAD_PER_S = 132 * 64 * 1.98e9
+# The card's peaks: costmodel's (tfidf_tpu_torch/obs/costmodel.py), set
+# by card_peaks() at the start of main() from the card's name.
+HBM_BYTES_PER_S = INT32_MAD_PER_S = FP32_FMA_PER_S = None
 SEED = 42
 N_DOCS = 32768
 DOC_LEN = 256
@@ -306,9 +336,6 @@ SEG_VIEW_EVERY = 8        # path_segmented: a view and a search every 8 calls
 # kernel_cases_b6: Q held bit-equal on the tfidf face, and Q timed per face
 B6_CHECKED_Q = (1, 3, 16, 17, 32, 33, 64, 100, 128, 256, 257, 512)
 B6_TIMED_Q = {"tfidf": (64, RETR_QUERIES, 1, 512), "bm25": (64, RETR_QUERIES)}
-# FP32 fused multiply-adds per second: the data sheet's 67 TFLOP/s of
-# float32 outside the tensor cores, two operations per FMA.
-FP32_FMA_PER_S = 67e12 / 2
 
 
 T_START = time.perf_counter()
@@ -477,6 +504,23 @@ def dispatch_thread_host(events) -> dict:
             "runtime_calls": {name: {"count": c, "ms": ms} for name, (c, ms)
                               in sorted(calls.items(),
                                         key=lambda kv: -kv[1][1])}}
+
+
+def card_peaks() -> float:
+    """Read the card's peaks from the package's cost model (one roofline
+    for every bound): bytes/s from ``hbm_peak_gbs`` of the card's name,
+    which must know it (no default), int32 MADs/s and float32 FMAs/s.
+    Returns the peak in GB/s."""
+    global HBM_BYTES_PER_S, INT32_MAD_PER_S, FP32_FMA_PER_S
+    from tfidf_tpu_torch.obs import costmodel
+    kind = torch.cuda.get_device_name(0)
+    peak = costmodel.hbm_peak_gbs(kind)
+    check(peak is not None, f"costmodel.hbm_peak_gbs knows no peak for "
+          f"{kind!r}")
+    HBM_BYTES_PER_S = peak * 1e9
+    INT32_MAD_PER_S = costmodel.INT32_MAD_PER_S
+    FP32_FMA_PER_S = costmodel.FP32_FMA_PER_S
+    return peak
 
 
 def bound_ms(nbytes: int) -> float:
@@ -2414,21 +2458,22 @@ def _same_topk(a, b, n: int) -> bool:
 
 def cli_runs(runs: dict) -> dict:
     """``python -m tfidf_tpu_torch.cli`` once per entry of ``runs`` (label
-    -> (argv, stdin text or None)), all at once in subprocesses without
-    ``--device`` (so on cuda); raises unless each exits 0. An argv item
-    ``"{out}"`` becomes a file path whose bytes are returned; without one
-    the bytes are stdout's. Returns label -> {"bytes", "seconds",
-    "stderr", "concurrent"}."""
+    -> (argv, stdin text or None[, extra environment])), all at once in
+    subprocesses without ``--device`` (so on cuda); raises unless each
+    exits 0. An argv item ``"{out}"`` becomes a file path whose bytes are
+    returned; without one the bytes are stdout's. Returns label ->
+    {"bytes", "seconds", "stderr", "concurrent"}."""
     import concurrent.futures as cf
 
-    def one(label, argv, stdin, tmp):
+    def one(label, argv, stdin, tmp, env=None):
         path = os.path.join(tmp, f"{label}.out")
         argv = [path if a == "{out}" else a for a in argv]
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "tfidf_tpu_torch.cli", *argv],
             input=stdin, capture_output=True, text=True, cwd=REPO,
-            timeout=600, env={**os.environ, "PYTHONPATH": REPO})
+            timeout=600, env={**os.environ, "PYTHONPATH": REPO,
+                              **(env or {})})
         secs = time.perf_counter() - t0
         check(proc.returncode == 0, f"cli {label} exit {proc.returncode}: "
               f"{proc.stderr[-2000:]}")
@@ -2442,8 +2487,8 @@ def cli_runs(runs: dict) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp, \
             cf.ThreadPoolExecutor(max_workers=len(runs)) as ex:
-        jobs = {label: ex.submit(one, label, argv, stdin, tmp)
-                for label, (argv, stdin) in runs.items()}
+        jobs = {label: ex.submit(one, label, *run[:2], tmp, *run[2:])
+                for label, run in runs.items()}
         return {label: job.result() for label, job in jobs.items()}
 
 
@@ -2456,10 +2501,13 @@ def query_args(small, queries) -> list:
     return args
 
 
-def cli_commands(small, queries) -> dict:
-    """The CLI runs the mesh, multi-process, mesh-serve, replicas and
-    serve phases check, over the 32,768 files: ``run --doc-len 256``
-    plain, with ``--mesh 1,1,1`` and with ``--ingest-workers 4``;
+def cli_commands(small, queries, golden_dir, observe_dir) -> dict:
+    """The CLI runs the observe, mesh, multi-process, mesh-serve,
+    replicas and serve phases check, over the 32,768 files: ``run
+    --doc-len 256`` traced (into ``observe_dir``, with
+    ``TFIDF_TPU_DEVMON=1``) and untraced, with ``--mesh 1,1,1`` and with
+    ``--ingest-workers 4``; traced, the bytes wire's run and the golden
+    batch run over ``golden_dir``;
     ``query`` and ``stream`` with ``--mesh-docs 1`` (their plain runs are
     path_mesh_serve's and path_stream's, in process); ``serve --doc-len
     256`` plain and with ``--mesh-shards 1`` on the same request lines;
@@ -2479,7 +2527,16 @@ def cli_commands(small, queries) -> dict:
               for op in ("healthz", "readyz", "metrics", "devmon")]
     lines.append(json.dumps({"op": "shutdown"}))
     lines = "\n".join(lines) + "\n"
-    return {"single": (run, None),
+
+    def traced(label):
+        return ["--trace", os.path.join(observe_dir, f"{label}.json")]
+
+    golden = ["run", "--input", golden_dir, "--output", "{out}"]
+    return {"single": (run + traced("single"), None,
+                       {"TFIDF_TPU_DEVMON": "1"}),
+            "single_untraced": (run, None),
+            "bytes": (run + ["--wire", "bytes"] + traced("bytes"), None),
+            "golden": (golden + traced("golden"), None),
             "mesh_111": (run + ["--mesh", "1,1,1"], None),
             "workers_4": (run + ["--ingest-workers", "4"], None),
             "query_mesh_1": (query_args(small, queries)
@@ -2488,6 +2545,220 @@ def cli_commands(small, queries) -> dict:
             "serve_single": (serve, lines),
             "serve_mesh_1": (serve + ["--mesh-shards", "1"], lines),
             **replica_cli_commands(small, queries)}
+
+
+# path_observe: the ingest's spans on their lanes, and the spans that must
+# carry the bytes they move (tools/trace_check.py's ingest rules)
+OBSERVE_LANES = {"main": {"pack_wait", "dispatch", "phase_b", "fetch_wait",
+                          "emit"},
+                 "packer": {"pack"}, "drainer": {"drain"}}
+OBSERVE_STAMPED = ("dispatch", "fetch", "drain", "slab", "device_tokenize")
+GOLDEN_PHASES = {"discover", "pack", "transfer", "compute", "fetch", "emit"}
+OBSERVE_KERNELS = {"ragged": ("ragged_rebuild", "fused_score_topk",
+                              "pack_words"),
+                   "bytes": ("tokenize_hash", "fused_score_topk",
+                             "pack_words")}
+OBSERVE_Q = (1, 64)
+
+
+def traced_run(T, label, cli, observe_dir, peak_gbs, lanes_want, want,
+               must_stamp=OBSERVE_STAMPED):
+    """One traced CLI run: the bytes ``want`` (what the run writes
+    untraced), the span names on their lanes, a byte stamp on each span
+    named in ``must_stamp``, every stamp's GB/s under the card's peak;
+    returns its figures and its events."""
+    from tfidf_tpu_torch import obs
+    from tfidf_tpu_torch.obs import costmodel
+
+    traced = cli[label]
+    check(traced["bytes"] == want,
+          f"path_observe {label}: traced bytes differ from untraced")
+    path = os.path.join(observe_dir, f"{label}.json")
+    events = obs.load_chrome_trace(path)
+    lanes = obs.spans_by_thread(events)
+    names = {lane: sorted({e["name"] for e in evs})
+             for lane, evs in lanes.items()}
+    for lane, want in lanes_want.items():
+        check(want <= set(names.get(lane, ())),
+              f"path_observe {label}: lane {lane} has {names.get(lane)}, "
+              f"not {sorted(want)}")
+    stamped, max_gbps = {}, {}
+    for e in (e for evs in lanes.values() for e in evs):
+        b = (e.get("args") or {}).get("bytes")
+        if e["name"] in must_stamp:
+            check(isinstance(b, (int, float)), f"path_observe {label}: "
+                  f"{e['name']} span without bytes: {e.get('args')}")
+        gbps = costmodel.span_gbps(e)
+        if gbps is not None:
+            check(gbps <= 1.05 * peak_gbs, f"path_observe {label}: "
+                  f"{e['name']} at {gbps} GB/s, past 1.05 x {peak_gbs}")
+            stamped[e["name"]] = stamped.get(e["name"], 0) + int(b)
+            max_gbps[e["name"]] = max(max_gbps.get(e["name"], 0.0), gbps)
+    flight = [json.loads(line) for line in open(path + ".flight.jsonl")]
+    censuses = [e for e in flight[1:] if e.get("event") == "hbm_census"]
+    out = {"wall_s": traced["seconds"], "bytes_equal": True, "spans": sum(map(len, lanes.values())),
+           "lanes": names, "stamped_bytes": stamped,
+           "max_gb_s": max_gbps, "trace_bytes": os.path.getsize(path),
+           "flight_bytes": os.path.getsize(path + ".flight.jsonl"),
+           "flight_events": flight[0]["events"]}
+    if censuses:
+        out["hbm_census_total_bytes"] = censuses[-1]["total_bytes"]
+        out["hbm_census_owners"] = censuses[-1]["owners"]
+    return out, lanes
+
+
+def observe_oracle(T, big_docs, rcfg, queries) -> dict:
+    """The RETR_SMALL index's searches against scoring.oracle.oracle_topk
+    on the index's host arrays: the same ids in the same order, scores
+    allclose."""
+    from tfidf_tpu_torch.models.retrieval import query_matrix
+    from tfidf_tpu_torch.scoring import oracle, parse_filter, parse_scorer
+    from tfidf_tpu_torch.scoring.filters import filter_mask
+
+    small = T.Corpus(names=[f"doc{i}" for i in range(1, RETR_SMALL + 1)],
+                     docs=big_docs[:RETR_SMALL])
+    r = T.TfidfRetriever(rcfg).index(small)
+    out = {}
+    for name in ("tfidf", "bm25", "tfidf+id_range"):
+        kw = RETR_SETTINGS[name]
+        spec = parse_scorer(kw.get("scorer"))
+        data, cols = r.scorer_face(spec)
+        live = np.zeros((data.shape[0],), bool)
+        live[:r._num_docs] = True
+        fspec = parse_filter(kw.get("filter"))
+        if fspec is not None:
+            live[:r._num_docs] &= filter_mask(fspec, r._num_docs,
+                                              names=r.names)
+        for q in OBSERVE_Q:
+            vals, ids = r.search(queries[:q], k=RETR_K, **kw)
+            qmat = query_matrix(queries[:q], rcfg, r._idf_host(),
+                                mode="counts" if spec.kind == "bm25"
+                                else "cosine")
+            wv, wi = oracle.oracle_topk(data, cols, live, qmat, RETR_K)
+            check(np.array_equal(ids, wi), f"path_observe oracle {name} "
+                  f"Q={q}: ids or tie order differ from oracle_topk")
+            check(np.allclose(vals, wv, rtol=1e-5, atol=1e-6),
+                  f"path_observe oracle {name} Q={q}: scores not allclose")
+            out[f"{name}/Q{q}"] = {
+                "ids_equal": True, "results": int((ids >= 0).sum()),
+                "max_abs_err": float(np.abs(vals - wv).max())}
+    return out
+
+
+def start_capture(small, observe_dir, wire):
+    """tfidf_tpu_torch/tools/trace_capture.py of one warm chunk of the
+    32,768 files on ``wire``, in a process of its own: this one has held
+    many profiler sessions by now, and torch 2.11's profiler loses device
+    records after a large one (PERF.md §6). Returns the process and
+    its capture directory."""
+    cap_dir = os.path.join(observe_dir, f"capture_{wire}")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tfidf_tpu_torch", "tools",
+                                      "trace_capture.py"),
+         "--input", small, "--len", str(DOC_LEN), "--wire", wire,
+         "--out", cap_dir], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+    return proc, cap_dir
+
+
+def path_observe(T, K, ingest, small, big_docs, rcfg, queries, total, cli,
+                 observe_dir, gold_bytes):
+    """Traced CLI runs, the device span's close, the device-op table of
+    one warm ingest chunk, the cost model beside it and the search
+    against the scoring oracle."""
+    from tfidf_tpu_torch import obs
+    from tfidf_tpu_torch.obs import costmodel
+
+    t_phase = time.perf_counter()
+    # the two captures run at once, beside this process's checks
+    captures = {wire: start_capture(small, observe_dir, wire)
+                for wire in OBSERVE_KERNELS}
+    peak = costmodel.hbm_peak_gbs(torch.cuda.get_device_name(0))
+    check(peak is not None, "path_observe: no HBM peak for the card")
+    out = {"peak_gb_s": peak}
+    runs, events = {}, {}
+    plain = cli["single_untraced"]["bytes"]  # every wire writes these
+    for label, lanes_want, want, must_stamp in (
+            ("single", OBSERVE_LANES, plain, OBSERVE_STAMPED),
+            ("bytes", {**OBSERVE_LANES, "packer": {"pack", "slab"},
+                       "main": OBSERVE_LANES["main"] | {"device_tokenize"}},
+             plain, OBSERVE_STAMPED),
+            # the batch pipeline's phases carry no byte stamps (as in
+            # the JAX package)
+            ("golden", {"main": GOLDEN_PHASES}, gold_bytes, ())):
+        runs[label], events[label] = traced_run(
+            T, label, cli, observe_dir, peak, lanes_want, want, must_stamp)
+    runs["single"]["untraced_wall_s"] = cli["single_untraced"]["seconds"]
+    check(runs["single"].get("hbm_census_total_bytes", 0) > 0,
+          f"path_observe: the traced run's flight dump holds no census of "
+          f"more than 0 bytes: {runs['single'].get('hbm_census_owners')}")
+    out["traced_runs"] = runs
+
+    # A device span closes after its device work: a sleep kernel of
+    # 4 x SLEEP_CYCLES (about 20 ms) inside the ingest's phase_b span.
+    obs.set_tracer(obs.Tracer())
+    try:
+        torch.cuda.synchronize()
+        with ingest._device_phase([torch.device("cuda")], "phase_b"):
+            torch.cuda._sleep(4 * SLEEP_CYCLES)
+        (span,) = [e for e in obs.get_tracer().chrome_events()
+                   if e.get("ph") == "X"]
+    finally:
+        obs.set_tracer(None)
+    sleep_ms = device_span_ms(lambda: torch.cuda._sleep(4 * SLEEP_CYCLES),
+                              reps=3, warmup=1)
+    check(span["dur"] / 1e3 >= 0.9 * sleep_ms,
+          f"path_observe: phase_b closed after {span['dur'] / 1e3} ms, "
+          f"before its {sleep_ms} ms sleep kernel ended")
+    out["device_span_close"] = {"span_ms": span["dur"] / 1e3,
+                                "sleep_kernel_ms": sleep_ms}
+
+    out["oracle"] = observe_oracle(T, big_docs, rcfg, queries)
+
+    # the device-op table of one warm chunk on each wire
+    tables = {}
+    for wire, kernels in OBSERVE_KERNELS.items():
+        proc, cap_dir = captures[wire]
+        stdout, stderr = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"path_observe trace_capture {wire}: "
+              f"exit {proc.returncode}: {stderr[-2000:]}")
+        cap = json.loads(stdout.strip().splitlines()[-1])
+        every, total_us = obs.device_op_table(obs.load_chrome_trace(
+            os.path.join(cap_dir, "device_trace.json")), top=1 << 30)
+        check(total_us == cap["total_us"] and cap["wire"] == wire
+              and cap["path"] == "resident",
+              f"path_observe capture {wire}: {cap['wire']} {cap['path']}")
+        calls, kernel_ms = {}, {}
+        for kernel in kernels:
+            fn = K.KERNEL_FUNCTIONS[kernel]
+            rows = [row for row in every if fn in row[0]]
+            calls[kernel] = sum(c for _, _, c in rows)
+            kernel_ms[kernel] = sum(us for _, us, _ in rows) / 1e3
+            check(rows and calls[kernel] == cap["launches"][kernel] > 0,
+                  f"path_observe {wire}: the device-op table has "
+                  f"{calls[kernel]} {fn} calls, LAUNCHES counted "
+                  f"{cap['launches'][kernel]}")
+        for kernel, n in cap["launches"].items():
+            total[kernel] += n
+        tables[wire] = {"device_ms": cap["total_us"] / 1e3,
+                        "wall_ms": cap["wall_ms"], "calls": calls,
+                        "kernel_ms": kernel_ms, "launches": cap["launches"],
+                        "top": [{"name": name[:100], "ms": us / 1e3,
+                                 "calls": c} for name, us, c in every[:12]]}
+    model = costmodel.bytes_model(N_DOCS, DOC_LEN, TOPK, hbm_gbs=peak)
+    tables["bytes_model"] = {**model, "chunk_device_ms":
+                             tables["ragged"]["device_ms"]}
+    out["device_op_tables"] = tables
+    # phase_b of the traced single run: the scoring of its 32,768 rows,
+    # at least the fused score+top-k kernel's device time in the capture
+    b1_ms = tables["ragged"]["kernel_ms"]["fused_score_topk"]
+    phase_b_ms = sum(e["dur"] for e in events["single"]["main"]
+                     if e["name"] == "phase_b") / 1e3
+    check(phase_b_ms >= b1_ms, f"path_observe: the traced run's phase_b "
+          f"({phase_b_ms} ms) is shorter than B1's {b1_ms} ms")
+    out["phase_b_ms"] = {"traced_single": phase_b_ms, "capture_b1": b1_ms}
+    emit({"phase": "path_observe", **out,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
 
 
 def path_mesh(T, K, ingest, corpus, gold, big, small, rg, streamed,
@@ -4094,6 +4365,7 @@ def main() -> int:
     from tfidf_tpu_torch.io import fast_tokenizer as FT
     from tfidf_tpu_torch.ops import _build, kernels as K
 
+    card_peaks()
     smi = env_phase(_build)
     summary = kernel_phase(K)
 
@@ -4153,8 +4425,15 @@ def main() -> int:
         seg_idx = path_segmented(T, K, big_docs, queries, total)
         path_exact_terms(T, K, FT, ingest, big, small, total)
         chargram = path_chargram(T, K, FT, total)
-        # the CLI runs the last four phases check, run at once
-        cli = cli_runs(cli_commands(small, queries))
+        # the CLI runs the next six phases check, run at once
+        golden_dir = os.path.join(tmp, "golden")
+        observe_dir = os.path.join(tmp, "observe")
+        for d in (golden_dir, observe_dir):
+            os.makedirs(d)
+        write_corpus(golden_dir, gold.docs)
+        cli = cli_runs(cli_commands(small, queries, golden_dir, observe_dir))
+        path_observe(T, K, ingest, small, big_docs, rcfg, queries, total,
+                     cli, observe_dir, want)
         path_mesh(T, K, ingest, corpus, gold, big, small, rg, streamed,
                   chargram, total, cli)
         path_multiprocess(T, K, _build, big, rg, total, cli)

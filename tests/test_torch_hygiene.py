@@ -11,9 +11,15 @@
 * What the port does not cover yet raises NotImplementedError naming
   the ROADMAP item that brings it. A case whose item has landed keeps
   its id and now checks the ported feature against the JAX package.
+* Every public name of every JAX module (top-level names, and the public
+  methods of public classes, read with ``ast`` without importing the JAX
+  package) exists in the port module of the same path, or stands in
+  :data:`NAME_DIVERGENCES` with its reason and in ROADMAP.md's
+  "Deliberate divergences".
 """
 
 import ast
+import importlib
 import os
 
 import numpy as np
@@ -116,6 +122,140 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                           for n in names if _forbidden(n)]
     assert offenders == []
+
+
+# (JAX module path, public name) -> why the port has no counterpart.
+# "<module>" stands for the whole module.
+_XLA_CACHE = "the XLA compile cache and its sizes: the port compiles no XLA"
+_LOWERING = ("an XLA lowering selector: on CUDA every step runs its kernel, "
+             "on the CPU its plain version")
+_SORT_JOIN = "a TPU sort/join form: the port folds DF with the gather join"
+_IN_KERNELS = ("a jitted device op: the port's is the kernel wrapper of "
+               "ops/kernels.py (ragged_rebuild, pack_words)")
+_SHARDING = ("a jax Mesh, PartitionSpec or NamedSharding: the port's placement "
+             "is explicit (MeshPlan.row_blocks, collectives.place_batch)")
+NAME_DIVERGENCES = {
+    ("cli.py", "NATIVE_BIN"): "the native oracle is built into _build "
+                              "(ops/_build.load_oracle), not native/",
+    ("cli.py", "REPO_ROOT"): "the same: the CLI locates no native/ binary",
+    ("config.py", "apply_compile_cache"): _XLA_CACHE,
+    ("index/__init__.py", "index_compile_cache_size"): _XLA_CACHE,
+    ("ops/sparse.py", "score_topk_tiled_cache_size"): _XLA_CACHE,
+    ("parallel/serving.py", "mesh_search_cache_size"): _XLA_CACHE,
+    ("ingest.py", "rebuild_method"): _LOWERING,
+    ("ops/device_tokenize.py", "tokenize_method"): _LOWERING,
+    ("ops/downlink.py", "downlink_method"): _LOWERING,
+    ("ingest.py", "rebuild_padded"): _IN_KERNELS,
+    ("ops/downlink.py", "pack_result_words"): _IN_KERNELS,
+    ("ops/downlink.py", "pack_words"): _IN_KERNELS,
+    ("ops/downlink.py", "PACKED_SLOT_BYTES"): "the wires' bytes are counted "
+                                              "from their tensors",
+    ("ops/sparse.py", "df_join_sorted"): _SORT_JOIN,
+    ("ops/sparse.py", "df_slot_sorted"): _SORT_JOIN,
+    ("ops/sparse.py", "join_method"): _SORT_JOIN,
+    ("ops/sparse.py", "sparse_scores_joined"): _SORT_JOIN,
+    ("ops/pallas_kernels.py", "<module>"): "the Pallas kernels: the port's "
+                                           "are csrc/*.cu behind ops/kernels.py",
+    ("parallel/compat.py", "<module>"): "a shard_map import shim: the port's "
+                                        "mesh is single-controller",
+    ("parallel/__init__.py", "shard_map"): "the same shim, re-exported",
+    ("parallel/mesh.py", "MeshPlan.batch_spec"): _SHARDING,
+    ("parallel/mesh.py", "MeshPlan.counts_spec"): _SHARDING,
+    ("parallel/mesh.py", "MeshPlan.df_spec"): _SHARDING,
+    ("parallel/mesh.py", "MeshPlan.lengths_spec"): _SHARDING,
+    ("parallel/mesh.py", "MeshPlan.sharding"): _SHARDING,
+    ("parallel/mesh.py", "MeshPlan.mesh"): _SHARDING,
+}
+
+
+def _public_names(path: str):
+    """A module's public names by ``ast``: ``__all__`` when it has one,
+    else its top-level defs, classes and assignments (imports excluded);
+    each public class with its public methods and class attributes."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    top, classes, all_ = [], {}, None
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            top.append(node.name)
+        elif isinstance(node, ast.ClassDef):
+            top.append(node.name)
+            members = []
+            for b in node.body:
+                if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    members.append(b.name)
+                elif isinstance(b, ast.Assign):
+                    members += [t.id for t in b.targets
+                                if isinstance(t, ast.Name)]
+                elif isinstance(b, ast.AnnAssign) \
+                        and isinstance(b.target, ast.Name):
+                    members.append(b.target.id)
+            classes[node.name] = [m for m in members if not m.startswith("_")]
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for t in targets:
+                for n in ast.walk(t):
+                    if isinstance(n, ast.Name):
+                        top.append(n.id)
+                        if n.id == "__all__":
+                            all_ = [e.value for e in node.value.elts]
+    names = all_ if all_ is not None else top
+    return ([n for n in names if not n.startswith("_")],
+            {c: m for c, m in classes.items() if not c.startswith("_")})
+
+
+def _jax_modules():
+    root = os.path.join(REPO, "tfidf_tpu")
+    for dirpath, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                yield os.path.relpath(path, root).replace(os.sep, "/"), path
+
+
+def _divergences_text() -> str:
+    with open(os.path.join(REPO, "ROADMAP.md"), encoding="utf-8") as f:
+        text = f.read()
+    start = text.index("Deliberate divergences")
+    return text[start:]
+
+
+def test_every_public_name_has_a_counterpart():
+    missing, allowed = [], set()
+    for rel, path in _jax_modules():
+        mod_name = "tfidf_tpu_torch." + rel[:-3].replace("/", ".")
+        mod_name = mod_name.removesuffix(".__init__")
+        if not os.path.exists(os.path.join(REPO, "tfidf_tpu_torch", rel)):
+            key = (rel, "<module>")
+            if key in NAME_DIVERGENCES:
+                allowed.add(key)
+            else:
+                missing.append(key)
+            continue
+        port = importlib.import_module(mod_name)
+        names, classes = _public_names(path)
+        for name in names:
+            checks = [(name, hasattr(port, name))]
+            if hasattr(port, name) and name in classes:
+                cls = getattr(port, name)
+                fields = getattr(cls, "__dataclass_fields__", {})
+                checks += [(f"{name}.{m}", hasattr(cls, m) or m in fields)
+                           for m in classes[name]]
+            for what, present in checks:
+                key = (rel, what)
+                if key in NAME_DIVERGENCES:
+                    # an allowed gap must still be one
+                    assert not present, f"{key} is ported: drop it"
+                    allowed.add(key)
+                elif not present:
+                    missing.append(key)
+    assert missing == []
+    assert allowed == set(NAME_DIVERGENCES), "stale divergence entries"
+    text = _divergences_text()
+    for rel, name in NAME_DIVERGENCES:
+        word = rel if name == "<module>" else name.split(".")[-1]
+        assert f"`{word}`" in text, f"{word} not in ROADMAP's divergences"
 
 
 @pytest.mark.parametrize("module,bad", [

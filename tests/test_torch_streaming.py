@@ -636,7 +636,10 @@ def test_cli_stream_options(stream_dir, tmp_path, monkeypatch, capsys):
     names = {e["name"] for e in obs.load_chrome_trace(trace)
              if e.get("ph") == "X"}
     obs.set_tracer(None)
-    assert names == {"stream_update", "stream_score"}
+    # the JAX CLI's stream spans: its phases (phase_or_null) and the
+    # engine's device spans
+    assert names == {"pass1_df", "pass2_score", "emit", "stream_update",
+                     "stream_score"}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device available"):
         tcli.main(base)

@@ -1070,7 +1070,6 @@ def _run_stream(args) -> int:
     order, so ``docs_seen`` from a restored checkpoint is the exact
     restart position.
     """
-    import contextlib
     import types
 
     import numpy as np
@@ -1081,7 +1080,7 @@ def _run_stream(args) -> int:
     from tfidf_tpu_torch.io.corpus import PackedBatch, discover_names
     from tfidf_tpu_torch.pipeline import _host
     from tfidf_tpu_torch.streaming import StreamingTfidf
-    from tfidf_tpu_torch.utils.timing import PhaseTimer
+    from tfidf_tpu_torch.utils.timing import PhaseTimer, phase_or_null
 
     cfg = PipelineConfig(vocab_mode=VocabMode.HASHED,
                          vocab_size=args.vocab_size, topk=args.topk,
@@ -1125,11 +1124,8 @@ def _run_stream(args) -> int:
 
     timer = PhaseTimer() if args.timing else None
 
-    def phase(name):
-        return timer.phase(name) if timer else contextlib.nullcontext()
-
     # Pass 1: fold DF, checkpoint after every minibatch.
-    with phase("pass1_df"):
+    with phase_or_null(timer, "pass1_df"):
         for batch in batches(start):
             stream.update(batch)
             if args.checkpoint:
@@ -1139,7 +1135,7 @@ def _run_stream(args) -> int:
     # Pass 2: score all minibatches against the final DF snapshot.
     all_names: List[str] = []
     all_vals, all_ids = [], []
-    with phase("pass2_score"):
+    with phase_or_null(timer, "pass2_score"):
         for batch in batches(0):
             vals, ids = stream.score(batch)
             if not isinstance(vals, np.ndarray):  # the pair wire
@@ -1151,7 +1147,7 @@ def _run_stream(args) -> int:
         num_docs=len(all_names), names=all_names,
         topk_vals=np.concatenate(all_vals), topk_ids=np.concatenate(all_ids),
         id_to_word={})
-    with phase("emit"):
+    with phase_or_null(timer, "emit"):
         _write_topk(args.output, report)  # same format as `run --topk`
     if timer is not None:
         total = sum(timer.as_dict().values()) or 1.0
@@ -1230,11 +1226,9 @@ def _run_mpi(args) -> int:
                            str(args.nranks), args.comm]).returncode
 
 
-def _timing_report(timer, docs: int, seconds: float,
-                   engine: Optional[str] = None) -> None:
+def _timing_report(timer, throughput, engine: Optional[str] = None) -> None:
     sys.stderr.write(timer.report() + "\n"
-                     f"{'docs/sec':>12}: "
-                     f"{docs / seconds if seconds else 0.0:9.1f}\n")
+                     f"{'docs/sec':>12}: {throughput.docs_per_sec:9.1f}\n")
     if engine is not None:
         sys.stderr.write(f"{'engine':>12}: {engine}\n")
 
@@ -1252,16 +1246,16 @@ def _cli_plan(mesh_shape: dict, device):
 
 
 def _run(args) -> int:
-    import contextlib
     import time
     import types
 
-    from tfidf_tpu_torch import obs
     from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
     from tfidf_tpu_torch.formatter import write_output
     from tfidf_tpu_torch.io.corpus import discover_corpus, discover_names
+    from tfidf_tpu_torch.obs import devmon
     from tfidf_tpu_torch.pipeline import TfidfPipeline
-    from tfidf_tpu_torch.utils.timing import PhaseTimer
+    from tfidf_tpu_torch.utils.timing import (PhaseTimer, Throughput,
+                                              phase_or_null)
 
     mesh_shape = {}
     if args.mesh:
@@ -1292,13 +1286,13 @@ def _run(args) -> int:
         wire=args.wire, pack_threads=args.pack_threads,
         finish=args.finish or "scan", compile_cache=args.compile_cache)
     strict = not args.no_strict
+    # Device memory sampling (TFIDF_TPU_DEVMON): when armed, a global
+    # DeviceMonitor samples in the background and the run's epilog takes
+    # a last sample and a census into the flight recorder's ring
+    # (tools/doctor.py reads it from the dump).
+    devmon.configure()
     timer = PhaseTimer() if args.timing else None
-
-    @contextlib.contextmanager
-    def phase(name):
-        with obs.span(name), (timer.phase(name) if timer is not None
-                              else contextlib.nullcontext()):
-            yield
+    throughput = Throughput()
 
     corpus = None
     if args.inspect:
@@ -1328,13 +1322,14 @@ def _run(args) -> int:
             args.input, cfg, k=args.topk, doc_len=args.doc_len,
             chunk_docs=args.chunk_docs or 8192, strict=strict,
             spill=args.spill or "auto", device=args.device)
-        seconds = time.perf_counter() - t0
-        with phase("emit"):
+        throughput.record(n_docs, time.perf_counter() - t0)
+        with phase_or_null(timer, "emit"):
             # already in the reference's strcmp order
             with open(args.output, "wb") as f:
                 f.write(lines)
+        _census()
         if timer is not None:
-            _timing_report(timer, n_docs, seconds, engine)
+            _timing_report(timer, throughput, engine)
         print(f"wrote {args.output} ({n_docs} docs)")
         return 0
     t0 = time.perf_counter()
@@ -1344,22 +1339,18 @@ def _run(args) -> int:
         # buckets, so they take the ids-only wire.
         kw = dict(doc_len=args.doc_len, chunk_docs=args.chunk_docs or 8192,
                   strict=strict, spill=args.spill or "auto")
-        with obs.span("run_overlapped"):
-            if workers > 1:
-                from tfidf_tpu_torch.parallel.multihost import \
-                    run_sharded_ingest
-                r, info = run_sharded_ingest(args.input, cfg,
-                                             n_workers=workers,
-                                             device=args.device, **kw)
-                sys.stderr.write(
-                    f"sharded ingest: {info.n_workers} workers, upload "
-                    f"{info.upload_s:.3f}s (max over links), utilization "
-                    f"{info.link_utilization}\n")
-            else:
-                r = run_overlapped(args.input, cfg,
-                                   wire_vals=not exact_terms,
-                                   plan=_cli_plan(mesh_shape, args.device),
-                                   device=args.device, **kw)
+        if workers > 1:
+            from tfidf_tpu_torch.parallel.multihost import run_sharded_ingest
+            r, info = run_sharded_ingest(args.input, cfg, n_workers=workers,
+                                         device=args.device, **kw)
+            sys.stderr.write(
+                f"sharded ingest: {info.n_workers} workers, upload "
+                f"{info.upload_s:.3f}s (max over links), utilization "
+                f"{info.link_utilization}\n")
+        else:
+            r = run_overlapped(args.input, cfg, wire_vals=not exact_terms,
+                               plan=_cli_plan(mesh_shape, args.device),
+                               device=args.device, **kw)
         result = types.SimpleNamespace(
             num_docs=r.num_docs, names=r.names, topk_vals=r.topk_vals,
             topk_ids=r.topk_ids, id_to_word={}, df=r.df,
@@ -1369,12 +1360,12 @@ def _run(args) -> int:
                 timer.add(name, secs)
     else:
         if corpus is None:
-            with phase("discover"):
+            with phase_or_null(timer, "discover"):
                 corpus = discover_corpus(args.input, strict=strict)
         pipe = TfidfPipeline(cfg, timer=timer, device=args.device)
         result = pipe.run(corpus)
-    seconds = time.perf_counter() - t0
-    with phase("emit"):
+    throughput.record(result.num_docs, time.perf_counter() - t0)
+    with phase_or_null(timer, "emit"):
         if args.topk is None:
             write_output(args.output, result.output_lines())
         elif exact_terms:
@@ -1393,10 +1384,21 @@ def _run(args) -> int:
                 f.write(b"".join(line + b"\n" for line in lines))
         else:
             _write_topk(args.output, result)
+    _census()
     if timer is not None:
-        _timing_report(timer, result.num_docs, seconds)
+        _timing_report(timer, throughput)
     print(f"wrote {args.output} ({result.num_docs} docs)")
     return 0
+
+
+def _census() -> None:
+    """The run's epilog under ``TFIDF_TPU_DEVMON``: a last sample and a
+    census into the flight recorder's ring (the ``hbm_census`` event)."""
+    from tfidf_tpu_torch.obs import devmon
+    mon = devmon.get_monitor()
+    if mon is not None:
+        mon.sample()
+        mon.log_census()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -1404,12 +1406,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.cmd == "run" and args.backend == "mpi":
         return _run_mpi(args)
     # Arm the span tracer (--trace / TFIDF_TPU_TRACE; a no-op when neither
-    # is set) and, for serve, the flight recorder (--flight /
-    # TFIDF_TPU_FLIGHT, or next to the trace); export both on any exit.
+    # is set) and the flight recorder (--flight / TFIDF_TPU_FLIGHT, or next
+    # to the trace as <trace>.flight.jsonl); export both on any exit, a
+    # failed run's included: trace and flight are one incident's evidence.
     from tfidf_tpu_torch import obs
     obs.configure(args.trace)
-    if args.cmd == "serve":
-        obs.configure_flight(args.flight)
+    obs.configure_flight(getattr(args, "flight", None))
     try:
         if args.cmd == "serve":
             return _run_serve(args)
@@ -1421,12 +1423,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         path = obs.export()
         if path:
-            sys.stderr.write(f"trace written to {path} (Chrome trace "
-                             f"JSON: open in Perfetto)\n")
-        if args.cmd == "serve":
-            fpath = obs.dump_flight()
-            if fpath:
-                sys.stderr.write(f"flight recorder dumped to {fpath}\n")
+            sys.stderr.write(f"trace written to {path} (open in "
+                             f"Perfetto; check: tools/trace_check.py)\n")
+        fpath = obs.dump_flight()
+        if fpath:
+            sys.stderr.write(f"flight recorder dumped to {fpath} "
+                             f"(check: tools/trace_check.py "
+                             f"--flight)\n")
 
 
 if __name__ == "__main__":

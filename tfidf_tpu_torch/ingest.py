@@ -59,8 +59,21 @@ and ``IngestResult.df`` is a host ndarray on every path. The lowering
 selectors ``TFIDF_TPU_REBUILD``, ``TFIDF_TPU_SCORE``,
 ``TFIDF_TPU_DOWNLINK`` and ``TFIDF_TPU_DEVICE_TOKENIZE`` are not read:
 on CUDA every step runs its kernel, on the CPU its plain version.
-Obs spans, fault injection and worker restart supervision are not
-ported: a worker's exception surfaces at ``get()``/``results()``.
+Fault injection and worker restart supervision are not ported: a
+worker's exception surfaces at ``get()``/``results()``.
+
+With the span tracer armed (``obs.configure``: ``--trace`` or
+``TFIDF_TPU_TRACE``) a run records the JAX package's spans on the same
+lanes: ``pack`` (and on the bytes wire ``slab``, with its bytes) on the
+``packer`` lane; ``pack_wait``, ``dispatch`` (the uploaded wire's
+bytes), ``device_tokenize`` (the slab's bytes), ``phase_b``,
+``fetch_wait``, ``link_sync`` (the DF's bytes, a sharded worker's
+merge) and ``fetch`` (the result wire's bytes) on ``main``; ``drain``
+(the fetched words' bytes) on the ``drainer`` lane. ``phase_b`` is a
+device span that closes once its device work has finished (it waits on
+an event), so while tracing it is the scoring's time, not its enqueue;
+no other span waits on the device, and the packer and drainer spans add
+no synchronisation.
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tfidf_tpu_torch import obs
 from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
 from tfidf_tpu_torch.io import fast_tokenizer
 from tfidf_tpu_torch.io.corpus import Corpus, discover_names, pack_corpus
@@ -355,6 +369,20 @@ def _sync(*devices: torch.device) -> None:
             torch.cuda.synchronize(dev)
 
 
+@contextlib.contextmanager
+def _device_phase(devices, name: str, **args):
+    """``obs.device_span(name)`` that closes when the device work issued
+    inside it has finished on ``devices`` (an event wait, while tracing
+    only): a traced phase's span is its device time, not its enqueue. A
+    no-op when tracing is off."""
+    if not obs.enabled():
+        yield
+        return
+    with obs.device_span(name, **args):
+        yield
+        _Mark(*devices).synchronize()
+
+
 class _PackAhead:
     """Double-buffered host packing: ONE worker thread runs the chunk
     packer ahead of the dispatch loop, so chunk i+1's read+pack overlaps
@@ -384,9 +412,11 @@ class _PackAhead:
             return
         _trace("pack_submit", i)
 
-        def job(item=self._items[i]):
+        def job(item=self._items[i], i=i):
+            obs.name_thread("packer")
             t0 = time.perf_counter()
-            out = self._fn(item)
+            with obs.span("pack", chunk=i):
+                out = self._fn(item)
             self._host_s += time.perf_counter() - t0
             return out
 
@@ -442,8 +472,10 @@ class _DrainAhead:
         _trace("drain_submit", idx)
 
         def job():
+            obs.name_thread("drainer")
             t0 = time.perf_counter()
-            out = self._unpack(copy.result())
+            with obs.span("drain", chunk=idx, bytes=int(copy.nbytes)):
+                out = self._unpack(copy.result())
             self._host_s += time.perf_counter() - t0
             _trace("drain_done", idx)
             return out
@@ -781,12 +813,15 @@ def make_bytes_packer(input_dir: str, cfg: PipelineConfig,
 
     def pack_native(chunk_names: List[str]):
         t0 = time.perf_counter()
+        # one native call reads and fills: its whole wall is the slab
+        sp = obs.begin("slab")
         out = fast_tokenizer.load_slab_paths(
             [os.path.join(input_dir, n) for n in chunk_names],
             pad_docs_to=chunk_docs,
             n_threads=getattr(cfg, "pack_threads", None), align=align,
             cap_round=byte_bucket())
         assert out is not None  # slab_available() checked above
+        obs.end(sp, bytes=int(out[0].nbytes))
         add("slab", time.perf_counter() - t0)
         _check_slab_fits_int32(out[2])
         return out
@@ -799,6 +834,7 @@ def make_bytes_packer(input_dir: str, cfg: PipelineConfig,
                 docs.append(f.read())
         add("load", time.perf_counter() - t0)
         t0 = time.perf_counter()
+        sp = obs.begin("slab")
         blens = np.zeros((max(chunk_docs, len(docs)),), np.int32)
         blens[:len(docs)] = [len(d) for d in docs]
         albl = aligned_byte_lengths(blens[:len(docs)], align)
@@ -811,6 +847,7 @@ def make_bytes_packer(input_dir: str, cfg: PipelineConfig,
         for doc, a in zip(docs, albl.tolist()):
             slab[off:off + len(doc)] = np.frombuffer(doc, np.uint8)
             off += int(a)
+        obs.end(sp, bytes=int(slab.nbytes))
         add("slab", time.perf_counter() - t0)
         return slab, blens, total
 
@@ -997,9 +1034,10 @@ class _Run:
         df = df_parts[0] if self.plan is None else self.plan.psum(df_parts)
         if self.df_merge is None:
             return df
-        merged = self.df_merge(df.cpu().numpy().astype(np.int32))
-        return torch.from_numpy(np.ascontiguousarray(
-            merged, dtype=np.int32)).to(df.device)
+        with obs.span("link_sync", bytes=int(df.nbytes)):
+            merged = self.df_merge(df.cpu().numpy().astype(np.int32))
+            return torch.from_numpy(np.ascontiguousarray(
+                merged, dtype=np.int32)).to(df.device)
 
     def gather(self, local: np.ndarray, n_chunks: int) -> np.ndarray:
         """This process's rows (chunk-major, each chunk its shards' rows
@@ -1171,26 +1209,34 @@ def _run_resident(run: _Run) -> IngestResult:
             as packer:
         for ci in range(n_chunks):
             t0 = time.perf_counter()
-            wire_arr, lengths = packer.get(ci)
+            with obs.span("pack_wait", chunk=ci):
+                wire_arr, lengths = packer.get(ci)
             ph["pack"] += time.perf_counter() - t0
             if not bwire:
                 all_lengths.append(lengths)
             bytes_wire += wire_arr.nbytes + lengths.nbytes
             bytes_padded += padded_chunk_bytes + lengths.nbytes
             t0 = time.perf_counter()
-            _trace("upload", ci)
-            for d, (wire, lens) in enumerate(run.blocks(wire_arr, lengths)):
-                if bwire:
-                    # lengths here are BYTE lengths; the device derives
-                    # the token lengths, whose copy to the host starts now.
-                    i_, c_, h_, df_parts[d], lens = _chunk_bytes(
-                        wire, lens, df_parts[d], **run.tokenize_kw(align))
-                    all_lengths.append(_HostCopy(lens))
-                else:
-                    i_, c_, h_, df_parts[d] = _chunk_step(
-                        wire, lens, df_parts[d], cfg, length, ragged)
-                trips[d].append((i_, c_, h_, lens))
-            _trace("dispatch", ci)
+            with obs.span("dispatch", chunk=ci,
+                          bytes=int(wire_arr.nbytes + lengths.nbytes)):
+                _trace("upload", ci)
+                for d, (wire, lens) in enumerate(run.blocks(wire_arr,
+                                                            lengths)):
+                    if bwire:
+                        # lengths here are BYTE lengths; the device
+                        # derives the token lengths, whose copy to the
+                        # host starts now.
+                        with obs.span("device_tokenize", chunk=ci,
+                                      bytes=int(wire.nbytes)):
+                            i_, c_, h_, df_parts[d], lens = _chunk_bytes(
+                                wire, lens, df_parts[d],
+                                **run.tokenize_kw(align))
+                        all_lengths.append(_HostCopy(lens))
+                    else:
+                        i_, c_, h_, df_parts[d] = _chunk_step(
+                            wire, lens, df_parts[d], cfg, length, ragged)
+                    trips[d].append((i_, c_, h_, lens))
+                _trace("dispatch", ci)
             ph["put"] += time.perf_counter() - t0
     ph["pack_host"] = packer.host_seconds
     if bwire:
@@ -1220,19 +1266,24 @@ def _run_resident(run: _Run) -> IngestResult:
             for d, dev in enumerate(devs):
                 idf_d = idf.to(dev)
                 if scan_finish:
-                    outs = [_phase_b_scan_packed(*shard_trips[d], idf_d,
-                                                 topk=k)]
+                    steps = [(dict(finish="scan", chunks=n_chunks),
+                              functools.partial(_phase_b_scan_packed,
+                                                *shard_trips[d]))]
                 else:
-                    outs = (_phase_b_cached_packed(*t, idf_d, topk=k)
-                            for t in trips[d])
-                for words in outs:
+                    steps = [(dict(chunk=ci), functools.partial(
+                        _phase_b_cached_packed, *t))
+                        for ci, t in enumerate(trips[d])]
+                for span_args, step in steps:
+                    with _device_phase([dev], "phase_b", **span_args):
+                        words = step(idf_d, topk=k)
                     bytes_off += words.nbytes
                     drain.put(len(owners), words)
                     owners.append(d)
             ph["score_b"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             _trace("fetch_start")
-            parts = drain.results()  # in issue order
+            with obs.span("fetch_wait"):
+                parts = drain.results()  # in issue order
             _trace("fetch_done")
         df_host = df_copy.result()
         ph["fetch"] = time.perf_counter() - t0
@@ -1255,13 +1306,15 @@ def _run_resident(run: _Run) -> IngestResult:
     vals_parts, tid_parts, bytes_off = [], [], 0
     _trace("fetch_start")
     for d, dev in enumerate(devs):
-        _, wire = _score_pack_wire(*shard_trips[d], df_acc.to(dev),
-                                   run.num_docs_idf, topk=k,
-                                   score_dtype=run.score_dtype,
-                                   wide_ids=wide,
-                                   include_vals=run.wire_vals,
-                                   keep_missing=keep_missing)
-        buf = wire.cpu().numpy()
+        with _device_phase([dev], "phase_b", finish="fused"):
+            _, wire = _score_pack_wire(*shard_trips[d], df_acc.to(dev),
+                                       run.num_docs_idf, topk=k,
+                                       score_dtype=run.score_dtype,
+                                       wide_ids=wide,
+                                       include_vals=run.wire_vals,
+                                       keep_missing=keep_missing)
+        with obs.span("fetch", bytes=int(wire.nbytes)):
+            buf = wire.cpu().numpy()
         bytes_off += buf.nbytes
         vals, tids, occ = _decode_wire(buf, rows, k, wide, run.score_dtype,
                                        include_vals=run.wire_vals)
@@ -1336,41 +1389,50 @@ def _run_streaming(run: _Run) -> IngestResult:
     with _PackAhead(pack_any, run.chunk_names(starts, chunk_docs)) as packer:
         for ci in range(n_chunks):
             t0 = time.perf_counter()
-            wire_arr, lengths = packer.get(ci)
+            with obs.span("pack_wait", chunk=ci):
+                wire_arr, lengths = packer.get(ci)
             ph["pack_a"] += time.perf_counter() - t0  # stall only
             if not bwire:
                 all_lengths.append(lengths)
             bytes_wire += wire_arr.nbytes + lengths.nbytes
             bytes_padded += padded_chunk_bytes + lengths.nbytes
             _trace("upload", ci)
-            blocks = run.blocks(wire_arr, lengths)
-            if cache_bytes + chunk_cache_bytes <= cache_budget:
-                # Sort once and keep the triples: pass B scores them
-                # directly, with no re-pack, re-upload or re-sort.
-                trip_cache[ci] = []
-                for d, (wire, lens_dev) in enumerate(blocks):
-                    if bwire:
-                        i_, c_, h_, df_parts[d], lens_dev = _chunk_bytes(
-                            wire, lens_dev, df_parts[d], **tok_kw)
-                        all_lengths.append(_HostCopy(lens_dev))
-                    else:
-                        i_, c_, h_, df_parts[d] = _chunk_step(
-                            wire, lens_dev, df_parts[d], cfg, length, ragged)
-                    trip_cache[ci].append((i_, c_, h_, lens_dev))
-                cache_bytes += chunk_cache_bytes
-                if spill == "host":
-                    cached.append(None)  # pass B skips the host copy
-            else:
-                if spill == "host":
-                    cached.append((wire_arr, lengths))
-                for d, (wire, lens_dev) in enumerate(blocks):
-                    if bwire:
-                        df_parts[d], lens_dev = _phase_a_bytes(
-                            wire, lens_dev, df_parts[d], **tok_kw)
-                        all_lengths.append(_HostCopy(lens_dev))
-                    else:
-                        df_parts[d] = phase_a_any(wire, lens_dev,
-                                                  df_parts[d])
+            with obs.span("dispatch", chunk=ci,
+                          bytes=int(wire_arr.nbytes + lengths.nbytes)):
+                blocks = run.blocks(wire_arr, lengths)
+                if cache_bytes + chunk_cache_bytes <= cache_budget:
+                    # Sort once and keep the triples: pass B scores them
+                    # directly, with no re-pack, re-upload or re-sort.
+                    trip_cache[ci] = []
+                    for d, (wire, lens_dev) in enumerate(blocks):
+                        if bwire:
+                            with obs.span("device_tokenize", chunk=ci,
+                                          bytes=int(wire.nbytes)):
+                                i_, c_, h_, df_parts[d], lens_dev = \
+                                    _chunk_bytes(wire, lens_dev,
+                                                 df_parts[d], **tok_kw)
+                            all_lengths.append(_HostCopy(lens_dev))
+                        else:
+                            i_, c_, h_, df_parts[d] = _chunk_step(
+                                wire, lens_dev, df_parts[d], cfg, length,
+                                ragged)
+                        trip_cache[ci].append((i_, c_, h_, lens_dev))
+                    cache_bytes += chunk_cache_bytes
+                    if spill == "host":
+                        cached.append(None)  # pass B skips the host copy
+                else:
+                    if spill == "host":
+                        cached.append((wire_arr, lengths))
+                    for d, (wire, lens_dev) in enumerate(blocks):
+                        if bwire:
+                            with obs.span("device_tokenize", chunk=ci,
+                                          bytes=int(wire.nbytes)):
+                                df_parts[d], lens_dev = _phase_a_bytes(
+                                    wire, lens_dev, df_parts[d], **tok_kw)
+                            all_lengths.append(_HostCopy(lens_dev))
+                        else:
+                            df_parts[d] = phase_a_any(wire, lens_dev,
+                                                      df_parts[d])
             _trace("dispatch", ci)
             in_flight.append(_Mark(*devs))
             if len(in_flight) > max_ahead:
@@ -1418,28 +1480,37 @@ def _run_streaming(run: _Run) -> IngestResult:
             assert cidx == list(range(n_scanned))  # prefix by construction
             trips = [trip_cache.pop(ci) for ci in cidx]
             for d in range(len(devs)):
-                emit(d, _phase_b_scan_packed(
-                    *(list(p) for p in zip(*(t[d] for t in trips))),
-                    idfs[d], topk=k))
+                with _device_phase([devs[d]], "phase_b", finish="scan",
+                                   chunks=n_scanned):
+                    words = _phase_b_scan_packed(
+                        *(list(p) for p in zip(*(t[d] for t in trips))),
+                        idfs[d], topk=k)
+                emit(d, words)
         for ci in range(n_scanned, n_chunks):
             if ci in trip_cache:
                 fn = _phase_b_cached_packed if packed_wire \
                     else _phase_b_cached
                 for d, t in enumerate(trip_cache.pop(ci)):
-                    emit(d, fn(*t, idfs[d], topk=k))
+                    with _device_phase([devs[d]], "phase_b", chunk=ci):
+                        out = fn(*t, idfs[d], topk=k)
+                    emit(d, out)
             else:
                 if spill == "host":
                     wire_arr, lengths = cached[ci]
                 else:
                     t0 = time.perf_counter()
-                    wire_arr, lengths = packer_b.get(bpos)
+                    with obs.span("pack_wait", chunk=ci):
+                        wire_arr, lengths = packer_b.get(bpos)
                     bpos += 1
                     ph["pack_b"] += time.perf_counter() - t0  # stall only
                 bytes_wire += wire_arr.nbytes + lengths.nbytes
                 bytes_padded += padded_chunk_bytes + lengths.nbytes
-                for d, (wire, lens_dev) in enumerate(
-                        run.blocks(wire_arr, lengths)):
-                    emit(d, phase_b_any(wire, lens_dev, idfs[d]))
+                with _device_phase(devs, "phase_b", chunk=ci):
+                    scored = [phase_b_any(wire, lens_dev, idfs[d])
+                              for d, (wire, lens_dev) in enumerate(
+                                  run.blocks(wire_arr, lengths))]
+                for d, out in enumerate(scored):
+                    emit(d, out)
             if not packed_wire:
                 marks.append(_Mark(*devs))
                 if ci >= max_ahead:  # the same lookahead bound as pass A
@@ -1448,7 +1519,8 @@ def _run_streaming(run: _Run) -> IngestResult:
             ph["pass_b"] = time.perf_counter() - t_pass
             t0 = time.perf_counter()
             _trace("fetch_start")
-            parts = drain.results()  # in issue order
+            with obs.span("fetch_wait"):
+                parts = drain.results()  # in issue order
             _trace("fetch_done")
             df_host = df_copy.result()
             ph["fetch"] = time.perf_counter() - t0  # stall only
@@ -1469,9 +1541,10 @@ def _run_streaming(run: _Run) -> IngestResult:
         cats = [(torch.cat([o[0] for o in p]), torch.cat([o[1] for o in p]))
                 for p in per]
         bytes_off = sum(v.nbytes + t.nbytes for v, t in cats)
-        df_host = _HostCopy(df_acc).result()
-        parts = [(_HostCopy(v).result(), _HostCopy(t).result())
-                 for v, t in cats]
+        with obs.span("fetch", bytes=int(df_acc.nbytes + bytes_off)):
+            df_host = _HostCopy(df_acc).result()
+            parts = [(_HostCopy(v).result(), _HostCopy(t).result())
+                     for v, t in cats]
         _trace("fetch_done")
         ph["fetch"] = time.perf_counter() - t0
     n_dispatches = len(owners)
@@ -1600,24 +1673,30 @@ def run_overlapped_exact(input_dir: str,
                                      for s in starts]) as packer:
             for ci, start in enumerate(starts):
                 t0 = time.perf_counter()
-                flat, lengths = packer.get(ci)
+                with obs.span("pack_wait", chunk=ci):
+                    flat, lengths = packer.get(ci)
                 ph["pack"] += time.perf_counter() - t0  # stall only
                 all_lengths.append(lengths[:len(names[start:start
                                                       + chunk_docs])])
                 t0 = time.perf_counter()
-                lens = _upload(lengths, dev)
-                i_, c_, h_, df_acc = _chunk_ragged(
-                    _upload(flat, dev), lens, df_acc, length=length,
-                    vocab_size=cfg.vocab_size, align=align)
+                with obs.span("dispatch", chunk=ci,
+                              bytes=int(flat.nbytes + lengths.nbytes)):
+                    lens = _upload(lengths, dev)
+                    i_, c_, h_, df_acc = _chunk_ragged(
+                        _upload(flat, dev), lens, df_acc, length=length,
+                        vocab_size=cfg.vocab_size, align=align)
                 trips.append((i_, c_, h_, lens))
                 ph["put"] += time.perf_counter() - t0
         ph["pack_host"] = packer.host_seconds
         t0 = time.perf_counter()
-        _, wire = _score_pack_wire(*(list(p) for p in zip(*trips)), df_acc,
-                                   num_docs, topk=k, score_dtype=score_dtype,
-                                   wide_ids=wide, include_vals=False,
-                                   include_counts=True)
-        buf = _HostCopy(wire).result()
+        with _device_phase([dev], "phase_b", finish="fused"):
+            _, wire = _score_pack_wire(*(list(p) for p in zip(*trips)),
+                                       df_acc, num_docs, topk=k,
+                                       score_dtype=score_dtype,
+                                       wide_ids=wide, include_vals=False,
+                                       include_counts=True)
+        with obs.span("fetch", bytes=int(wire.nbytes)):
+            buf = _HostCopy(wire).result()
         ph["fetch"] = time.perf_counter() - t0
         words = sess.words()
     tids, cnt, df_vec = _decode_wire_exact(buf, len(starts) * chunk_docs, k,

@@ -4,10 +4,13 @@ the chunk packers call from ``tfidf_tpu/io/fast_tokenizer.py``).
 The library is the repository's native read+tokenize+hash code
 (``native/{fast_tokenizer,loader,rerank,intern}.cc``), built by
 ``ops/_build.build_host`` with g++ into ``tfidf_tpu_torch/_build/`` at
-the first call, on the CPU as on the card. When it cannot be built or
-loaded, or ``TFIDF_TPU_NO_NATIVE`` is set, every function here returns
-None (or False) and the packers run their contract-identical Python
-path instead: host code either way, never a device fallback.
+the first call, on the CPU as on the card. ``TFIDF_TPU_NATIVE_LIB``
+points the loader at an alternate build of the same sources instead
+(a sanitizer build, or ``make -C native fast_tokenizer.so``), read at
+the first load as in the JAX package. When the library cannot be built
+or loaded, or ``TFIDF_TPU_NO_NATIVE`` is set, every function here
+returns None (or False) and the packers run their contract-identical
+Python path instead: host code either way, never a device fallback.
 
 The exact-terms engines' bindings live here too (``tfidf_tpu/io/
 fast_tokenizer.py``:517-752): the run-scoped intern table
@@ -49,6 +52,7 @@ _PI64 = ctypes.POINTER(ctypes.c_int64)
 _PF64 = ctypes.POINTER(ctypes.c_double)
 _SIGNATURES = {
     "tok_count": (_I64, [_C, _I64]),
+    "tok_hash_ids": (_I64, [_C, _I64, _U64, _I64, _I64, _PI32, _I64]),
     "tok_spans": (_I64, [_C, _I64, _PI64, _PI64, _I64]),
     "loader_open2": (_VP, [_C, _I64, _I, _I]),
     "loader_error": (_I64, [_VP]),
@@ -98,7 +102,8 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     from tfidf_tpu_torch.ops import _build
     try:
-        lib = _build.load_host()
+        alt = os.environ.get("TFIDF_TPU_NATIVE_LIB")
+        lib = ctypes.CDLL(alt) if alt else _build.load_host()
         for name, (restype, argtypes) in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.restype = restype
@@ -123,6 +128,24 @@ def load_error() -> str:
 # Every caller needs the whole symbol set, so the checks agree.
 loader_available = flat_available = slab_available = available
 intern_available = rerank_available = available
+
+
+def tokenize_hash_ids(data: bytes, vocab_size: int, seed: int = 0,
+                      truncate_at: Optional[int] = None
+                      ) -> Optional[np.ndarray]:
+    """Native tokenize+hash of one document: bytes -> int32 vocab ids
+    (the ids ``ops.tokenize`` computes in Python). None when the native
+    library is unavailable (the caller takes the Python path)."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = lib.tok_count(data, len(data))
+    out = np.empty(n, dtype=np.int32)
+    wrote = lib.tok_hash_ids(data, len(data), seed, vocab_size,
+                             truncate_at or 0,
+                             out.ctypes.data_as(_PI32), n)
+    assert wrote == n, f"tokenizer wrote {wrote} of {n} tokens"
+    return out
 
 
 def resolve_pack_threads(explicit: Optional[int] = None) -> int:

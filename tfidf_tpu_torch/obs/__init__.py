@@ -4,8 +4,10 @@ event log with its flight recorder.
 * :mod:`~tfidf_tpu_torch.obs.tracer` — thread-safe, near-zero-overhead-
   when-disabled span tracer recording to a ring buffer and exporting
   Chrome trace-event JSON (one ``tid`` lane per thread). Armed by
-  ``--trace out.json`` on ``cli stream`` or ``TFIDF_TPU_TRACE``.
-  ``device_span`` also opens an NVTX range while CUDA is initialised.
+  ``--trace out.json`` on the CLI subcommands or ``TFIDF_TPU_TRACE``.
+  ``device_span`` also opens an NVTX range while CUDA is initialised;
+  ``device_op_table`` aggregates a torch.profiler capture's device ops
+  (``tfidf_tpu_torch/tools/trace_capture.py``).
 * :mod:`~tfidf_tpu_torch.obs.log` — rate-limited structured event log +
   flight recorder: a bounded ring of leveled events and last-N request
   digests, dumped atomically as JSONL.
@@ -19,6 +21,8 @@ event log with its flight recorder.
   gauges.
 * :mod:`~tfidf_tpu_torch.obs.devmon` — CUDA memory gauges, census and
   watermarks, and the build watchdog.
+* :mod:`~tfidf_tpu_torch.obs.costmodel` — the card's peaks and the
+  bytes model (stdlib only): byte-stamped spans export achieved GB/s.
 * :mod:`~tfidf_tpu_torch.obs.reqtrace` / :mod:`~tfidf_tpu_torch.obs.
   disttrace` — request ids and fleet trace contexts.
 
@@ -31,18 +35,19 @@ from tfidf_tpu_torch.obs.log import (EventLog, configure_flight, dump_flight,
                                      flight_path, get_log, log_event,
                                      record_digest, set_log)
 from tfidf_tpu_torch.obs.tracer import (SpanHandle, Tracer, begin, configure,
-                                        device_span, enabled, end, export,
-                                        get_tracer, instant,
-                                        load_chrome_trace, name_thread,
-                                        set_export_meta, set_tracer, span,
-                                        span_totals, spans_by_thread,
-                                        trace_path)
+                                        device_op_table, device_span,
+                                        enabled, end, export, get_tracer,
+                                        instant, load_chrome_trace,
+                                        name_thread, set_export_meta,
+                                        set_tracer, span, span_totals,
+                                        spans_by_thread, trace_path)
 
 __all__ = [
     "Tracer", "SpanHandle", "configure", "enabled", "export",
     "get_tracer", "set_tracer", "span", "device_span", "begin", "end",
     "instant", "name_thread", "span_totals", "trace_path",
     "set_export_meta", "load_chrome_trace", "spans_by_thread",
+    "device_op_table",
     "EventLog", "get_log", "set_log", "log_event", "record_digest",
     "configure_flight", "flight_path", "dump_flight",
     # lazy (obs.registry / obs.health / obs.devmon / obs.slo):

@@ -13,7 +13,11 @@ CUDA).
   admission sheds, before the allocator runs out. Its census attributes
   the tensors of registered OWNERS (the resident index) by storage
   identity; PyTorch has no counterpart of ``jax.live_arrays()``, so the
-  rest of ``torch.cuda.memory_allocated()`` is reported as ``other``.
+  rest of ``torch.cuda.memory_allocated()`` is reported as ``other`` and
+  the blocks the caching allocator keeps reserved past it as
+  ``allocator_cache``: the census total is the process's reserved bytes
+  on the card. :meth:`DeviceMonitor.log_census` records a census as the
+  ``hbm_census`` flight event ``tools/doctor.py`` reads.
   Fed a mesh-sharded index's ``shard_stats`` (:meth:`DeviceMonitor.
   register_shards`), it publishes the per-shard index bytes
   (``shard_bytes_d*``, ``shard_imbalance_milli``, the ``shard_balance``
@@ -31,7 +35,15 @@ CUDA).
   every build with its wall seconds through :func:`note_build`. So in
   this package ``xla_compiles_total`` counts those builds and
   ``xla_compile_seconds_total`` their seconds, and a build after
-  :meth:`CompileWatch.mark_warm` is a recompile after warm-up.
+  :meth:`CompileWatch.mark_warm` is a recompile after warm-up (the flight
+  event ``xla_recompile``, which ``tools/doctor.py``'s recompile budget
+  counts). :func:`note_compile` is the JAX package's call-site hook for
+  a program's identity, kept for callers of either package.
+
+One global monitor, armed like the tracer: :func:`configure` reads
+``TFIDF_TPU_DEVMON`` (any non-empty value) and
+``TFIDF_TPU_DEVMON_PERIOD_MS`` (default 500 ms); ``cli run`` arms it and
+takes a last sample and a census at its end.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 from tfidf_tpu_torch.obs import log as obs_log
 
 __all__ = [
-    "DeviceMonitor", "CompileWatch", "get_watch", "set_watch", "note_build",
+    "DeviceMonitor", "CompileWatch", "configure", "get_monitor",
+    "set_monitor", "get_watch", "set_watch", "note_compile", "note_build",
     "DEFAULT_WATERMARKS",
 ]
 
@@ -132,6 +145,10 @@ class DeviceMonitor:
         survives a hot swap that way."""
         with self._lock:
             self._owners[name] = arrays_fn
+
+    def unregister_owner(self, name: str) -> None:
+        with self._lock:
+            self._owners.pop(name, None)
 
     def register_shards(self, shards_fn: Optional[Callable]) -> None:
         """Attach a mesh-shard balance feed: ``shards_fn()`` returns the
@@ -307,8 +324,12 @@ class DeviceMonitor:
         from ``untyped_storage().nbytes()`` of the tensors it returns
         (a storage shared by several tensors counts once, the first
         owner to name it claims it), and the rest of
-        ``torch.cuda.memory_allocated()`` as ``other``. On the CPU there
-        is no allocator total: ``total_bytes`` is the owners' sum.
+        ``torch.cuda.memory_allocated()`` as ``other``; on CUDA the
+        blocks the caching allocator holds past the allocated bytes are
+        ``allocator_cache`` and ``total_bytes`` is the reserved bytes
+        (``torch.cuda.memory_reserved()``: what the process holds on the
+        card). On the CPU there is no allocator total: ``total_bytes`` is
+        the owners' sum.
         ``top_shapes`` groups the owners' tensors by (dtype, shape).
         Owner callables that raise are skipped (a swapped-out retriever
         must not break the monitor)."""
@@ -344,16 +365,21 @@ class DeviceMonitor:
                 claimed += nb
                 by_shape[shape] = by_shape.get(shape, 0) + nb
             owners[name] = {"bytes": bytes_, "arrays": n}
+        allocated = total = claimed
         if indices:
             import torch
-            total = sum(int(torch.cuda.memory_allocated(i))
-                        for i in indices)
-        else:
-            total = claimed
-        owners["other"] = {"bytes": max(0, total - claimed), "arrays": 0}
+            allocated = sum(int(torch.cuda.memory_allocated(i))
+                            for i in indices)
+            total = max(allocated, sum(int(torch.cuda.memory_reserved(i))
+                                       for i in indices))
+        owners["other"] = {"bytes": max(0, allocated - claimed), "arrays": 0}
+        if indices:
+            owners["allocator_cache"] = {"bytes": total - allocated,
+                                         "arrays": 0}
         shapes = sorted(by_shape.items(), key=lambda kv: -kv[1])
         return {
             "total_bytes": total,
+            "allocated_bytes": allocated,
             "buffers": len(seen),
             "owners": owners,
             "top_shapes": [
@@ -361,7 +387,31 @@ class DeviceMonitor:
                 for (d, s), b in shapes[:top_shapes]],
         }
 
+    def log_census(self) -> dict:
+        """Take a census and record it as an ``hbm_census`` flight event,
+        which is how a census reaches ``tools/doctor.py`` through a
+        dump."""
+        c = self.census()
+        obs_log.log_event(
+            "info", "hbm_census",
+            msg=f"hbm census: {c['total_bytes'] / 1e6:.1f} MB across "
+                f"{c['buffers']} buffers",
+            total_bytes=c["total_bytes"], buffers=c["buffers"],
+            owners=c["owners"], top_shapes=c["top_shapes"])
+        return c
+
     # --- signals ------------------------------------------------------
+    @property
+    def memory_pressure(self) -> float:
+        """Last sampled max in-use/limit fraction across devices (0.0
+        when no device reports memory stats)."""
+        return self._pressure
+
+    @property
+    def peak_bytes(self) -> int:
+        """Highest allocator peak seen across all samples and devices."""
+        return self._peak_bytes
+
     def health_signal(self) -> Tuple[float, Optional[str]]:
         """The :meth:`HealthMonitor.add_signal` hook: (pressure,
         degraded-reason-or-None). The reason arms past the FIRST
@@ -496,6 +546,16 @@ class CompileWatch:
         """Builds noted since :meth:`mark_warm`."""
         return len(self._recompiles)
 
+    @property
+    def compile_seconds(self) -> float:
+        """Wall seconds of every build counted."""
+        return self._compile_s
+
+    def recompiles_after_warm(self) -> List[dict]:
+        """The fingerprints noted since :meth:`mark_warm`."""
+        with self._lock:
+            return list(self._recompiles)
+
     def health_signal(self) -> Tuple[int, Optional[str]]:
         """(recompile count after warm, degraded-reason-or-None); the
         reason stays armed for ``recent_s`` after the newest one."""
@@ -508,12 +568,13 @@ class CompileWatch:
         return n, None
 
 
-# --- module-level seam ------------------------------------------------
+# --- module-level seams -----------------------------------------------
 #
-# One global compile watch, tracer-style: the build site and the serve
-# batcher report through it, so the disabled path is a global load + None
-# test.
+# One global monitor and one global compile watch, tracer-style: the
+# build site, the CLI and the serve batcher report through them, so the
+# disabled path is a global load + None test.
 
+_monitor: Optional[DeviceMonitor] = None
 _watch: Optional[CompileWatch] = None
 
 
@@ -535,3 +596,45 @@ def note_build(program: str, seconds: float, **fingerprint) -> None:
     if w is not None:
         w.on_backend_compile(seconds)
         w.note(program, seconds=round(seconds, 3), **fingerprint)
+
+
+def note_compile(program: str, **fingerprint) -> None:
+    """A call site's report of a program it just compiled (the JAX
+    package's hook): noted on the watch, a recompile once it is warm.
+    No-op unless a watch is installed."""
+    w = _watch
+    if w is not None:
+        w.note(program, **fingerprint)
+
+
+def set_monitor(monitor: Optional[DeviceMonitor]) -> None:
+    """Install (or with None disarm) the process device monitor."""
+    global _monitor
+    _monitor = monitor
+
+
+def get_monitor() -> Optional[DeviceMonitor]:
+    return _monitor
+
+
+def configure(period_ms: Optional[float] = None,
+              registry=None) -> Optional[DeviceMonitor]:
+    """Arm the global device monitor the way ``tracer.configure`` arms
+    tracing: an explicit ``period_ms`` wins, else ``TFIDF_TPU_DEVMON``
+    (any non-empty value, sampling every ``TFIDF_TPU_DEVMON_PERIOD_MS``,
+    default 500 ms); unset leaves device monitoring off and returns None.
+    Idempotent: an armed monitor is kept. The monitor samples on a
+    daemon thread (``tfidf-devmon``)."""
+    global _monitor
+    if _monitor is not None:
+        return _monitor
+    if period_ms is None:
+        if not os.environ.get("TFIDF_TPU_DEVMON"):
+            return None
+        period_ms = float(os.environ.get("TFIDF_TPU_DEVMON_PERIOD_MS",
+                                         "500"))
+    if period_ms <= 0:
+        return None
+    _monitor = DeviceMonitor(registry=registry,
+                             period_s=period_ms / 1e3).start()
+    return _monitor

@@ -27,7 +27,7 @@ Design constraints, in priority order:
   capture carries the marker on its device timeline. On the CPU no NVTX
   call is made.
 
-Wire-up: the ``--trace out.json`` flag of ``cli stream``, or the
+Wire-up: ``--trace out.json`` on the CLI subcommands, or the
 ``TFIDF_TPU_TRACE`` env var (path), both through :func:`configure`;
 ring capacity via ``TFIDF_TPU_TRACE_CAP`` (spans, default 2^16).
 """
@@ -41,11 +41,14 @@ import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+from tfidf_tpu_torch.obs.costmodel import span_gbps
+
 __all__ = [
     "Tracer", "SpanHandle", "configure", "enabled", "export",
     "get_tracer", "set_tracer", "span", "begin", "end", "instant",
     "device_span", "name_thread", "span_totals", "trace_path",
-    "set_export_meta", "load_chrome_trace", "spans_by_thread",
+    "set_export_meta", "load_chrome_trace", "device_op_table",
+    "spans_by_thread",
 ]
 
 _DEFAULT_CAP = 1 << 16
@@ -258,18 +261,17 @@ class Tracer:
             else:
                 ev["s"] = "t"  # instant scope: thread
             if args:
-                # Cost-annotated spans (round 12): a span stamped with
-                # the bytes it moved exports its achieved bandwidth —
-                # bytes/ns IS GB/s — so the Perfetto timeline reads
+                # Cost-annotated spans: a span stamped with the bytes it
+                # moved exports its achieved bandwidth
+                # (costmodel.span_gbps), so the Perfetto timeline reads
                 # roofline fractions directly. Degenerate durations
                 # export no gb_s (json.dump would emit bare Infinity,
                 # which is not JSON). The ring's args dict is shared
                 # with the recording thread — copy, never mutate.
-                b = args.get("bytes")
-                if isinstance(b, (int, float)) and dur > 0:
-                    args = dict(args)
-                    args["gb_s"] = round(b / dur, 4)
                 ev["args"] = args
+                gbps = span_gbps(ev) if dur > 0 else None
+                if gbps is not None:
+                    ev["args"] = {**args, "gb_s": round(gbps, 4)}
             events.append(ev)
         return events
 
@@ -431,7 +433,7 @@ def set_export_meta(**kv) -> None:
         t.set_export_meta(**kv)
 
 
-# --- Chrome-trace reading (the tests read exports with these) ----------
+# --- Chrome-trace reading (trace_capture, chip_smoke and the tests) ----
 
 def load_chrome_trace(path: str) -> List[dict]:
     """Load a Chrome trace-event file (``.json`` or ``.json.gz``) and
@@ -464,3 +466,51 @@ def spans_by_thread(events: Iterable[dict]) -> Dict[str, List[dict]]:
         label = names.get(key) or f"{key[0]}/{key[1]}"
         out.setdefault(label, []).append(e)
     return out
+
+
+# Kineto's categories of device activity in a torch.profiler Chrome
+# export: kernels, copies and memsets (its "gpu_user_annotation" ranges
+# lie on the same lanes but are markers, not device work).
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_op_table(events: Iterable[dict], top: int = 25):
+    """Aggregate device-lane op durations of a profiler capture:
+    ``(rows, total_us)`` where rows are ``(name, total_us, calls)``
+    sorted by total. Reads a torch.profiler Chrome export
+    (``prof.export_chrome_trace``), whose device events carry a kineto
+    device category (``cat`` ``kernel``, ``gpu_memcpy``, ``gpu_memset``)
+    on pids labelled ``GPU n`` (torch 2.11 names them by the process,
+    ``python3``, and labels them with ``process_labels``), and a
+    ``jax.profiler`` capture, whose device lanes are pids with a
+    ``process_name`` mentioning ``TPU``, ``/device`` or ``Device``."""
+    import collections
+    proc_names: Dict[Any, str] = {}
+    for e in events:
+        if e.get("ph") == "M" and e.get("name") in ("process_name",
+                                                     "process_labels"):
+            a = e.get("args") or {}
+            proc_names[e.get("pid")] = (proc_names.get(e.get("pid"), "")
+                                        + " " + str(a.get("name", "")
+                                                    or a.get("labels", "")))
+    dev_pids = {p for p, n in proc_names.items()
+                if "TPU" in n or "GPU" in n or "/device" in n.lower()
+                or "Device" in n}
+    agg: Dict[str, float] = collections.defaultdict(float)
+    cnt: Dict[str, int] = collections.defaultdict(int)
+    total = 0.0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat not in _DEVICE_CATS and (e.get("pid") not in dev_pids
+                                        or cat == "gpu_user_annotation"):
+            continue
+        name = e.get("name", "?")
+        dur = float(e.get("dur", 0.0))  # microseconds
+        agg[name] += dur
+        cnt[name] += 1
+        total += dur
+    rows = [(name, us, cnt[name])
+            for name, us in sorted(agg.items(), key=lambda kv: -kv[1])]
+    return rows[:top], total

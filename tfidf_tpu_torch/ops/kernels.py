@@ -39,6 +39,14 @@ from tfidf_tpu_torch.ops.sparse import sparse_scores, sparse_topk
 LAUNCHES: Dict[str, int] = {"fused_score_topk": 0, "tf_df": 0, "pack_words": 0,
                             "ragged_rebuild": 0, "tokenize_hash": 0,
                             "tile_scores": 0}
+# The __global__ function of csrc/ each wrapper launches once a count
+# (its name in a profiler's device-op table).
+KERNEL_FUNCTIONS: Dict[str, str] = {
+    "fused_score_topk": "fused_score_topk_kernel", "tf_df": "tf_df_kernel",
+    "pack_words": "pack_words_kernel",
+    "ragged_rebuild": "ragged_rebuild_kernel",
+    "tokenize_hash": "tokenize_hash_kernel",
+    "tile_scores": "tile_scores_kernel"}
 
 # dtype codes of csrc/common.cuh and csrc/tokenize_hash.cu
 _SCORE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

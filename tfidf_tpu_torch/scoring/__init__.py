@@ -14,6 +14,9 @@ precomputed; a :class:`ScorerSpec` names that precomputation:
 
 Filters (:mod:`tfidf_tpu_torch.scoring.filters`) fold into the live
 mask. Field weights are ``TfidfRetriever.index_fields``.
+
+:mod:`tfidf_tpu_torch.scoring.oracle` is the NumPy reference every
+variant is held against (ids and tie order identical, scores allclose).
 """
 
 from tfidf_tpu_torch.scoring.family import (DEFAULT_B, DEFAULT_K1, ScorerSpec,

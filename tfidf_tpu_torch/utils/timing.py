@@ -1,12 +1,17 @@
-"""Phase timing and the latency histogram (port of
-``tfidf_tpu/utils/timing.py``'s ``PhaseTimer``, ``PhaseTimedMixin`` and
-``LatencyHistogram``).
+"""Phase timing, throughput counters, profiler regions and the latency
+histogram (port of ``tfidf_tpu/utils/timing.py``).
 
 On a CUDA device each phase is timed with a pair of CUDA events on the
 current stream and ends with ``torch.cuda.synchronize()``, so a phase
 measures completed device work, not the enqueue, and the next phase
 starts on an idle device. Without a timer nothing is recorded and no
 synchronisation is added.
+
+A phase also records as a tracer span when the span tracer is armed
+(:func:`phase_or_null`): the ``--timing`` report and the ``--trace``
+timeline are one measurement. On CUDA the span encloses the event pair
+and its synchronisation, so both sinks close after the phase's device
+work has finished.
 """
 
 from __future__ import annotations
@@ -42,15 +47,56 @@ class PhaseTimer:
         """Fold a measured duration in."""
         self._acc[name] = self._acc.get(name, 0.0) + seconds
 
+    def seconds(self, name: str) -> float:
+        return self._acc.get(name, 0.0)
+
+    def items(self) -> List[Tuple[str, float]]:
+        """``(phase, seconds)`` in first-seen order."""
+        return list(self._acc.items())
+
     def as_dict(self) -> Dict[str, float]:
         """Seconds per phase, in first-seen order."""
         return dict(self._acc)
+
+    def reset(self) -> None:
+        self._acc.clear()
 
     def report(self) -> str:
         """One line a phase: milliseconds and share of the total."""
         total = sum(self._acc.values()) or 1.0
         return "\n".join(f"{n:>12}: {s * 1e3:9.1f} ms ({100 * s / total:4.1f}%)"
                          for n, s in self._acc.items())
+
+
+class Throughput:
+    """docs/sec counter (the north-star metric)."""
+
+    def __init__(self) -> None:
+        self._docs = 0
+        self._seconds = 0.0
+
+    @contextlib.contextmanager
+    def measure(self, num_docs: int) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(num_docs, time.perf_counter() - t0)
+
+    def record(self, num_docs: int, seconds: float) -> None:
+        """Fold an externally measured run in (the document count is
+        known only when the run returns, e.g. the overlapped ingest's
+        discovery)."""
+        self._docs += num_docs
+        self._seconds += seconds
+
+    @property
+    def docs_per_sec(self) -> float:
+        return self._docs / self._seconds if self._seconds else 0.0
+
+    @property
+    def docs(self) -> int:
+        return self._docs
 
 
 @contextlib.contextmanager
@@ -68,20 +114,94 @@ def _cuda_phase(timer: PhaseTimer, name: str,
         timer.add(name, start.elapsed_time(end) / 1e3)
 
 
+class _TimedSpan:
+    """One context, two sinks: the phase's wall-clock accumulates into
+    the :class:`PhaseTimer` AND the same interval records as a tracer
+    span, so ``--timing`` phase reports and ``--trace`` timelines never
+    drift apart. With ``inner`` (the CUDA event pair of a timed phase on
+    a card) the span encloses that context, whose exit synchronises, and
+    the timer takes the events' device time instead."""
+
+    __slots__ = ("_timer", "_name", "_sp", "_inner", "_t0")
+
+    def __init__(self, timer, name, sp, inner=None):
+        self._timer = timer
+        self._name = name
+        self._sp = sp
+        self._inner = inner
+
+    def __enter__(self):
+        self._sp.__enter__()
+        if self._inner is not None:
+            self._inner.__enter__()
+        elif self._timer is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, et, ev, tb):
+        try:
+            if self._inner is not None:
+                self._inner.__exit__(et, ev, tb)
+            elif self._timer is not None:
+                self._timer.add(self._name, time.perf_counter() - self._t0)
+        finally:
+            self._sp.__exit__(et, ev, tb)
+        return False
+
+
+def phase_or_null(timer: Optional[PhaseTimer], name: str,
+                  device: Optional[torch.device] = None):
+    """``timer.phase(name)`` when a timer is attached, a tracer span when
+    the global tracer is armed (``obs.configure``), both when both, else
+    a no-op. ``device``: a CUDA device times the phase with CUDA events
+    and a synchronisation (only with a timer attached).
+
+    With neither sink armed the only cost is one enabled-check and a
+    shared no-op context; no synchronisation is added.
+    """
+    from tfidf_tpu_torch import obs
+    inner = None
+    if timer is not None and device is not None and device.type == "cuda":
+        inner = _cuda_phase(timer, name, device)
+    if obs.enabled():
+        return _TimedSpan(timer, name, obs.span(name), inner)
+    if inner is not None:
+        return inner
+    return timer.phase(name) if timer is not None \
+        else contextlib.nullcontext()
+
+
 class PhaseTimedMixin:
     """Phase plumbing for pipeline classes with a ``timer`` and a
     ``device``: ``_phase(name)`` times a phase on the attached
-    :class:`PhaseTimer` (a no-op without one)."""
+    :class:`PhaseTimer` and records it as a tracer span when tracing is
+    on (:func:`phase_or_null`)."""
 
     timer: Optional[PhaseTimer] = None
     device: torch.device = torch.device("cpu")
 
     def _phase(self, name: str):
-        if self.timer is None:
-            return contextlib.nullcontext()
-        if self.device.type == "cuda":
-            return _cuda_phase(self.timer, name, self.device)
-        return self.timer.phase(name)
+        return phase_or_null(self.timer, name, self.device)
+
+
+@contextlib.contextmanager
+def trace_region(name: str, enabled: bool = True) -> Iterator[None]:
+    """A named range on the profiler timelines (no-op when disabled):
+    a ``torch.profiler.record_function`` range, shown by a torch.profiler
+    capture, plus an NVTX range while CUDA is initialised, shown by
+    Nsight Systems."""
+    if not enabled:
+        yield
+        return
+    nvtx = torch.cuda.is_initialized()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
 
 
 class LatencyHistogram:
