@@ -1358,6 +1358,144 @@ def path_ingest_streaming(T, K, FT, ingest, root, total):
     return results["ragged_reread"]
 
 
+RECOVERY_PLAN = "pack_worker:transient:at=2;drain:transient:at=2"
+
+
+def _same_exact(a, b) -> bool:
+    return (a.names == b.names and a.words == b.words
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("lengths", "topk_ids", "topk_counts", "df")))
+
+
+def path_recovery(T, K, FT, ingest, big, small, rg, total):
+    """Supervised ingest workers on the card. With ``RECOVERY_PLAN``
+    armed (the second pack job and the second drain job each crash
+    once), the ragged wire on the 131,072-doc directory equals
+    ``path_ingest_resident``'s clean ``rg`` bit for bit, and on the
+    32,768-doc directory the bytes wire, the streaming regime (pass B
+    re-reading) and device-exact each equal their clean runs; a fatal
+    pack fault and an exhausted restart budget each surface. The
+    restarts come from a flight log, the backoff from ``faults.backoff_s``
+    and the heartbeats from an armed ``HealthMonitor``."""
+    from tfidf_tpu_torch import faults, obs
+    from tfidf_tpu_torch.obs.health import HealthMonitor, set_monitor
+
+    def cfg(w, **kw):
+        return T.PipelineConfig(vocab_mode=T.VocabMode.HASHED,
+                                vocab_size=SPARSE_VOCAB, max_doc_len=DOC_LEN,
+                                doc_chunk=DOC_LEN, topk=TOPK, wire=w, **kw)
+
+    t_phase = time.perf_counter()
+    stream_env = {"TFIDF_TPU_RESIDENT_ELEMS": str(N_DOCS * DOC_LEN - 1),
+                  "TFIDF_TPU_TRIPLE_CACHE_BYTES": str(
+                      2 * (STREAM_CHUNK * DOC_LEN * 9 + STREAM_CHUNK * 4))}
+    # label -> (run, the kernels it must launch, same-result test, env);
+    # the chunked finish drains every chunk, so the drain seam's second
+    # check comes in every run but device-exact's (no drainer)
+    cases = {
+        "ragged_131072": (lambda: ingest.run_overlapped(
+            big, cfg("ragged", finish="chunked"), chunk_docs=N_DOCS,
+            doc_len=DOC_LEN), ("ragged_rebuild", "fused_score_topk",
+                               "pack_words"), _same_result, {}),
+        "bytes_32768": (lambda: ingest.run_overlapped(
+            small, cfg("bytes", finish="chunked"), chunk_docs=STREAM_CHUNK,
+            doc_len=DOC_LEN), ("tokenize_hash", "fused_score_topk",
+                               "pack_words"), _same_result, {}),
+        "streaming_32768": (lambda: ingest.run_overlapped(
+            small, cfg("ragged"), chunk_docs=STREAM_CHUNK, doc_len=DOC_LEN,
+            spill="reread"), ("ragged_rebuild", "fused_score_topk",
+                              "pack_words"), _same_result, stream_env),
+        "exact_32768": (lambda: ingest.run_overlapped_exact(
+            small, cfg("ragged"), chunk_docs=STREAM_CHUNK,
+            doc_len=DOC_LEN), ("ragged_rebuild", "fused_score_topk"),
+            _same_exact, {}),
+    }
+    # a re-run drain waits on the same event and reads the same pinned
+    # buffer, which the job's closure keeps alive between attempts
+    copy = ingest._HostCopy(torch.from_numpy(np.ascontiguousarray(
+        rg.topk_ids)).view(torch.uint32).cuda())
+    first, second = copy.result(), copy.result()
+    check(copy._host.is_pinned() and np.shares_memory(first, second)
+          and np.array_equal(first, second),
+          "path_recovery: a second read of a drain's copy differs")
+    prev_log = obs.get_log()
+    monitor = HealthMonitor()
+    runs = {}
+    try:
+        set_monitor(monitor)
+        for label, (fn, kernels, same, env) in cases.items():
+            with env_vars(**env):
+                clean, clean_wall, clean_launches, _ = _counted_run(K, FT, fn)
+                log = obs.EventLog(echo="off")
+                obs.set_log(log)
+                faults.arm(faults.FaultPlan.parse(RECOVERY_PLAN))
+                with returned_calls(faults, "backoff_s") as backoffs:
+                    got, wall, launches, _ = _counted_run(K, FT, fn)
+                receipts = faults.get_registry().snapshot()
+                faults.disarm()
+            for kernel, c in launches.items():
+                total[kernel] += c + clean_launches[kernel]
+            for kernel in kernels:
+                check(launches[kernel] > 0, f"path_recovery {label}: "
+                      f"{kernel} never launched")
+            check(launches == clean_launches, f"path_recovery {label}: "
+                  f"a restart relaunched device work ({launches} against "
+                  f"{clean_launches})")
+            check(same(got, clean), f"path_recovery {label}: the faulted "
+                  f"run differs from the clean run")
+            if label == "ragged_131072":
+                check(_same_result(got, rg), "path_recovery: the faulted "
+                      "ragged run differs from path_ingest_resident's")
+            restarts = [(e["worker"], e["chunk"], e["restart"])
+                        for e in log.events()
+                        if e["event"] == "worker_restart"]
+            by_worker = {w: sum(1 for r in restarts if r[0] == w)
+                         for w in ("packer", "drainer")}
+            check(by_worker["packer"] == 1 and by_worker["drainer"]
+                  == (0 if label == "exact_32768" else 1),
+                  f"path_recovery {label}: restarts {restarts}")
+            runs[label] = {"clean_wall_s": clean_wall, "faulted_wall_s": wall,
+                           "clean_launches": clean_launches,
+                           "faulted_less_clean_s": wall - clean_wall,
+                           "backoff_s": sum(out for _, out in backoffs),
+                           "restarts": restarts,
+                           "restarts_by_worker": by_worker,
+                           "seam_receipts": receipts, "launches": launches}
+        beats = sorted(monitor._workers)
+        check(beats == ["drainer", "packer"],
+              f"path_recovery: heartbeats {beats}")
+        # a fatal fault and an exhausted budget surface to the caller
+        outcomes = {}
+        for label, spec, budget, exc in (
+                ("fatal", "pack_worker:fatal:n=1", "3", faults.FatalFault),
+                ("budget", "pack_worker:transient:n=5", "1",
+                 faults.TransientFault)):
+            faults.arm(faults.FaultPlan.parse(spec))
+            try:
+                with env_vars(TFIDF_TPU_RESTART_BUDGET=budget):
+                    ingest.run_overlapped(small, cfg("ragged"),
+                                          chunk_docs=STREAM_CHUNK,
+                                          doc_len=DOC_LEN)
+                outcomes[label] = None
+            except exc as e:
+                outcomes[label] = type(e).__name__
+            finally:
+                faults.disarm()
+            check(outcomes[label] == exc.__name__,
+                  f"path_recovery {label}: {spec} did not raise "
+                  f"{exc.__name__}")
+    finally:
+        faults.disarm()
+        set_monitor(None)
+        obs.set_log(prev_log)
+    emit({"phase": "path_recovery", "plan": RECOVERY_PLAN,
+          "restart_budget": ingest._restart_budget(), "runs": runs,
+          "heartbeats": beats,
+          "surfaced": outcomes, "equal_to_clean": True,
+          "ragged_equal_to_resident": True,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+
+
 def retrieval_queries(rng, n: int = RETR_QUERIES):
     """``n`` queries of 2-6 words from the corpus's vocabulary, word
     ranks drawn Zipf(1.3) as the documents' are."""
@@ -4417,6 +4555,7 @@ def main() -> int:
               "write_s": time.perf_counter() - t0})
         rg = path_ingest_resident(T, K, FT, ingest, big, big_docs, total,
                                   small)
+        path_recovery(T, K, FT, ingest, big, small, rg, total)
         streamed = path_ingest_streaming(T, K, FT, ingest, small, total)
         r, rcfg, queries = path_retrieval(T, K, big, big_docs, total)
         from tfidf_tpu_torch.models import retrieval as R

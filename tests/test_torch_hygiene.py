@@ -16,11 +16,17 @@
   package) exists in the port module of the same path, or stands in
   :data:`NAME_DIVERGENCES` with its reason and in ROADMAP.md's
   "Deliberate divergences".
+* What a run tells the outside world matches too, module by module: the
+  fault seams fired, the flight events logged, the span and instant
+  names, the heartbeat names and the ``TFIDF_TPU_*`` variables read (all
+  read with ``ast``, private code included), up to
+  :data:`VOCAB_DIVERGENCES`; and every seam the port declares is fired.
 """
 
 import ast
 import importlib
 import os
+import re
 
 import numpy as np
 import pytest
@@ -127,8 +133,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 # (JAX module path, public name) -> why the port has no counterpart.
 # "<module>" stands for the whole module.
 _XLA_CACHE = "the XLA compile cache and its sizes: the port compiles no XLA"
-_LOWERING = ("an XLA lowering selector: on CUDA every step runs its kernel, "
-             "on the CPU its plain version")
 _SORT_JOIN = "a TPU sort/join form: the port folds DF with the gather join"
 _IN_KERNELS = ("a jitted device op: the port's is the kernel wrapper of "
                "ops/kernels.py (ragged_rebuild, pack_words)")
@@ -142,9 +146,6 @@ NAME_DIVERGENCES = {
     ("index/__init__.py", "index_compile_cache_size"): _XLA_CACHE,
     ("ops/sparse.py", "score_topk_tiled_cache_size"): _XLA_CACHE,
     ("parallel/serving.py", "mesh_search_cache_size"): _XLA_CACHE,
-    ("ingest.py", "rebuild_method"): _LOWERING,
-    ("ops/device_tokenize.py", "tokenize_method"): _LOWERING,
-    ("ops/downlink.py", "downlink_method"): _LOWERING,
     ("ingest.py", "rebuild_padded"): _IN_KERNELS,
     ("ops/downlink.py", "pack_result_words"): _IN_KERNELS,
     ("ops/downlink.py", "pack_words"): _IN_KERNELS,
@@ -256,6 +257,135 @@ def test_every_public_name_has_a_counterpart():
     for rel, name in NAME_DIVERGENCES:
         word = rel if name == "<module>" else name.split(".")[-1]
         assert f"`{word}`" in text, f"{word} not in ROADMAP's divergences"
+
+
+# --- the vocabulary audit ---------------------------------------------
+#
+# The name audit above sees public names only; a private worker's seam,
+# event or beat escapes it. This one reads call sites. A call's callee
+# is matched by its last name, import aliases resolved (``beat as
+# _health_beat``), and its name argument by its string literal, either
+# branch of a conditional expression included.
+_VOCAB_CALLS = {
+    "fire": ("seams", 0),                 # faults.fire(seam)
+    "log_event": ("events", 1),           # obs_log.log_event(level, event)
+    "span": ("spans", 0), "device_span": ("spans", 0),
+    "begin": ("spans", 0), "instant": ("spans", 0),
+    "phase_or_null": ("spans", 1),        # phase_or_null(timer, name)
+    "_phase": ("spans", 0),               # PhaseTimedMixin._phase(name)
+    "_device_phase": ("spans", 1),        # the port's _device_phase(devs, n)
+    "beat": ("beats", 0), "heartbeat": ("beats", 0),
+}
+VOCABULARIES = ("seams", "events", "spans", "beats", "envs")
+_ENV_NAME = re.compile(r"TFIDF_TPU_[A-Z0-9_]+")
+
+# (vocabulary, module path, name) -> why the port lacks it.
+VOCAB_DIVERGENCES = {
+    ("envs", "config.py", "TFIDF_TPU_COMPILE_CACHE"): _XLA_CACHE,
+    ("envs", "ops/sparse.py", "TFIDF_TPU_DF_METHOD"): _SORT_JOIN,
+    ("envs", "ops/sparse.py", "TFIDF_TPU_JOIN"): _SORT_JOIN,
+    ("envs", "ops/pallas_kernels.py", "TFIDF_TPU_PALLAS_MAX_VOCAB"):
+        "a warning inside the Pallas kernels' module, which has no port",
+}
+
+
+def _literals(node) -> list:
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return [node.value]
+    if isinstance(node, ast.IfExp):
+        return _literals(node.body) + _literals(node.orelse)
+    return []
+
+
+def _vocabularies(source: str) -> dict:
+    """vocabulary -> the names one module's source uses."""
+    tree = ast.parse(source)
+    alias = {a.asname: a.name for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) for a in n.names if a.asname}
+    out = {v: set() for v in VOCABULARIES}
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Call):
+            f = n.func
+            name = f.attr if isinstance(f, ast.Attribute) else \
+                f.id if isinstance(f, ast.Name) else ""
+            vocab, pos = _VOCAB_CALLS.get(alias.get(name, name), (None, 0))
+            if vocab is not None and len(n.args) > pos:
+                out[vocab].update(_literals(n.args[pos]))
+        elif isinstance(n, ast.Constant) and isinstance(n.value, str) \
+                and _ENV_NAME.fullmatch(n.value):
+            out["envs"].add(n.value)  # an environ key, getenv or table arg
+    return out
+
+
+def _package_vocab(package: str) -> dict:
+    """vocabulary -> {(module path, name)} over a package tree."""
+    root = os.path.join(REPO, package)
+    out = {v: set() for v in VOCABULARIES}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            rel = os.path.relpath(path, root).replace(os.sep, "/")
+            with open(path, encoding="utf-8") as fh:
+                for vocab, names in _vocabularies(fh.read()).items():
+                    out[vocab].update((rel, n) for n in names)
+    return out
+
+
+@pytest.fixture(scope="module")
+def vocab_pair():
+    return _package_vocab("tfidf_tpu"), _package_vocab("tfidf_tpu_torch")
+
+
+@pytest.mark.parametrize("vocab", VOCABULARIES)
+def test_vocabulary_matches_the_jax_package(vocab_pair, vocab):
+    jax_v, port_v = (v[vocab] for v in vocab_pair)
+    allowed = {(rel, name) for (v, rel, name) in VOCAB_DIVERGENCES
+               if v == vocab}
+    assert not allowed & port_v, "an allowed gap is closed: drop it"
+    assert allowed <= jax_v, "stale divergence entries"
+    assert sorted(jax_v - port_v - allowed) == [], "missing in the port"
+    assert sorted(port_v - jax_v) == [], "the port's own: not in JAX"
+
+
+def _literals_in(node) -> list:
+    return [n.value for n in ast.walk(node)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+
+
+def test_every_declared_seam_fires(vocab_pair):
+    path = os.path.join(REPO, "tfidf_tpu_torch", "faults.py")
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    declared = next(set(_literals_in(n.value)) for n in ast.walk(tree)
+                    if isinstance(n, ast.Assign)
+                    and any(getattr(t, "id", None) == "SEAMS"
+                            for t in n.targets))
+    fired = {name for rel, name in vocab_pair[1]["seams"]
+             if rel != "faults.py"}
+    assert len(declared) == 6
+    assert sorted(declared - fired) == [], "declared but never fired"
+
+
+@pytest.mark.parametrize("src,vocab,name", [
+    ("faults.fire('pack_worker' if w else 'drain', chunk=i)", "seams",
+     "drain"),
+    ("from x.health import beat as _hb\n_hb('packer')", "beats", "packer"),
+    ("obs_log.log_event('warning', 'worker_restart', worker=w)", "events",
+     "worker_restart"),
+    ("with _device_phase(devs, 'phase_b'):\n    pass", "spans", "phase_b"),
+    ("os.environ.get('TFIDF_TPU_RESTART_BUDGET', '3')", "envs",
+     "TFIDF_TPU_RESTART_BUDGET"),
+])
+def test_vocabulary_reader_sees_each_form(src, vocab, name):
+    assert name in _vocabularies(src)[vocab]
+
+
+def test_vocabulary_divergences_are_in_the_roadmap():
+    text = _divergences_text()
+    for _, _, name in VOCAB_DIVERGENCES:
+        assert f"`{name}`" in text, f"{name} not in ROADMAP's divergences"
 
 
 @pytest.mark.parametrize("module,bad", [

@@ -530,3 +530,54 @@ class TestWireLayout:
                                                    jb.total)
         np.testing.assert_array_equal(tb.to_padded().token_ids,
                                       jb.to_padded().token_ids)
+
+
+class TestEnvKnobs:
+    """The JAX package's ingest knobs, read the same way: a bad lowering
+    selector raises in both packages (each value runs the port's one
+    kernel), and ``TFIDF_TPU_RESULT_WIRE`` overrides the config's result
+    wire in both."""
+
+    @pytest.fixture(autouse=True)
+    def _python_packers(self, monkeypatch):
+        for k in KNOBS:
+            monkeypatch.delenv(k, raising=False)
+        monkeypatch.setenv("TFIDF_TPU_NO_NATIVE", "1")
+
+    @pytest.mark.parametrize("var,wire", [
+        ("TFIDF_TPU_REBUILD", "ragged"),
+        ("TFIDF_TPU_DEVICE_TOKENIZE", "bytes"),
+        ("TFIDF_TPU_DOWNLINK", "padded"),
+        ("TFIDF_TPU_RESULT_WIRE", "padded")])
+    def test_a_bad_value_raises_in_both(self, corpus_dir, monkeypatch, var,
+                                        wire):
+        from tfidf_tpu.ops import downlink as jdownlink
+        monkeypatch.setenv(var, "bogus")
+        jcfg, tcfg = _configs(wire=wire)
+        with pytest.raises(ValueError, match="bogus"):
+            if var == "TFIDF_TPU_DOWNLINK":
+                # resolved while the JAX package traces its word pack, so
+                # a run on a cached program skips it: ask the resolver
+                jdownlink.downlink_method()
+            else:
+                jing.run_overlapped(corpus_dir, jcfg, chunk_docs=CHUNK,
+                                    doc_len=DOC_LEN)
+        with pytest.raises(ValueError, match="bogus"):
+            ing.run_overlapped(corpus_dir, tcfg, chunk_docs=CHUNK,
+                               doc_len=DOC_LEN, device="cpu")
+
+    @pytest.mark.parametrize("var,value", [
+        ("TFIDF_TPU_REBUILD", "pallas"), ("TFIDF_TPU_DOWNLINK", "pallas"),
+        ("TFIDF_TPU_RESULT_WIRE", "pair")])
+    def test_a_good_value_runs_as_in_jax(self, corpus_dir, monkeypatch,
+                                         padded_ids, var, value):
+        monkeypatch.setenv(var, value)
+        jcfg, tcfg = _configs()
+        jr = jing.run_overlapped(corpus_dir, jcfg, chunk_docs=CHUNK,
+                                 doc_len=DOC_LEN)
+        tr = ing.run_overlapped(corpus_dir, tcfg, chunk_docs=CHUNK,
+                                doc_len=DOC_LEN, device="cpu")
+        assert tr.result_wire == jr.result_wire \
+            == ("pair" if value == "pair" else "packed")
+        _assert_same(jr, tr, padded_ids,
+                     np.float32 if value == "pair" else np.float16)

@@ -57,10 +57,15 @@ accumulator is updated in place, the DF join is always the gather join
 and every chunk folds its DF (the JAX package's own choice off the TPU),
 and ``IngestResult.df`` is a host ndarray on every path. The lowering
 selectors ``TFIDF_TPU_REBUILD``, ``TFIDF_TPU_SCORE``,
-``TFIDF_TPU_DOWNLINK`` and ``TFIDF_TPU_DEVICE_TOKENIZE`` are not read:
-on CUDA every step runs its kernel, on the CPU its plain version.
-Fault injection and worker restart supervision are not ported: a
-worker's exception surfaces at ``get()``/``results()``.
+``TFIDF_TPU_DOWNLINK`` and ``TFIDF_TPU_DEVICE_TOKENIZE`` are validated
+as in the JAX package but choose nothing: on CUDA every step runs its
+kernel, on the CPU its plain version.
+On one device the packer and drainer jobs run supervised, as in the JAX
+package: each beats ``packer``/``drainer`` and fires the
+``pack_worker``/``drain`` fault seam; a crash is retried with backoff up
+to ``TFIDF_TPU_RESTART_BUDGET`` times (default 3), each retry a
+``worker_restart`` event, and a ``FatalFault`` surfaces at once. A mesh
+run's workers are unsupervised, as the JAX mesh ingest packs inline.
 
 With the span tracer armed (``obs.configure``: ``--trace`` or
 ``TFIDF_TPU_TRACE``) a run records the JAX package's spans on the same
@@ -89,12 +94,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tfidf_tpu_torch import obs
+from tfidf_tpu_torch import faults, obs
 from tfidf_tpu_torch.config import PipelineConfig, TokenizerKind, VocabMode
 from tfidf_tpu_torch.io import fast_tokenizer
 from tfidf_tpu_torch.io.corpus import Corpus, discover_names, pack_corpus
+from tfidf_tpu_torch.obs.health import beat as _health_beat
 from tfidf_tpu_torch.ops.device_tokenize import (aligned_byte_lengths,
-                                                 tokenize_hash_device)
+                                                 tokenize_hash_device,
+                                                 tokenize_method)
 from tfidf_tpu_torch.ops.downlink import (pair_slot_bytes,
                                           unpack_result_words,
                                           use_packed_result_wire)
@@ -278,6 +285,50 @@ def _trace(event: str, idx: int = -1) -> None:
         _overlap_trace((event, idx))
 
 
+def _restart_budget() -> int:
+    """Job restarts an ingest worker tolerates before its crash surfaces
+    to the dispatch loop (``TFIDF_TPU_RESTART_BUDGET``, default 3; the
+    serve batcher reads the same knob through ``ServeConfig``)."""
+    return max(0, int(os.environ.get("TFIDF_TPU_RESTART_BUDGET", "3")))
+
+
+def _supervised_job(worker: str, idx: int, body):
+    """Run one packer or drainer job under restart supervision. Each
+    attempt first fires the worker's seam (``pack_worker`` or ``drain``),
+    then runs ``body``. A crash, injected or real, is retried with
+    jittered backoff inside the restart budget, each retry a
+    ``worker_restart`` flight event and trace instant; a ``FatalFault``
+    or a crash past the budget propagates. A job is a pure function of
+    its chunk, so re-running it is safe: a drain re-reads the same
+    pinned buffer, which its closure keeps alive, and the exact path's
+    intern table is append-only, so a re-packed chunk gets the same
+    ids."""
+    from tfidf_tpu_torch.obs import log as obs_log
+    budget = _restart_budget()
+    attempt = 0
+    while True:
+        try:
+            faults.fire("pack_worker" if worker == "packer"
+                        else "drain", chunk=idx)
+            return body()
+        except faults.FatalFault:
+            raise
+        except Exception as e:  # noqa: BLE001 — supervised restart
+            attempt += 1
+            if attempt > budget:
+                raise
+            obs_log.log_event(
+                "warning", "worker_restart",
+                msg=f"{worker} job for chunk {idx} crashed "
+                    f"({type(e).__name__}: {e}); restart "
+                    f"{attempt}/{budget}",
+                worker=worker, chunk=idx, restart=attempt,
+                error=type(e).__name__)
+            obs.instant("worker_restart", worker=worker, chunk=idx,
+                        restart=attempt)
+            time.sleep(faults.backoff_s(attempt, 20.0))
+
+
 # --- guards -----------------------------------------------------------
 
 def _check_chunk_fits_int32(chunk_docs: int, length: int) -> None:
@@ -391,12 +442,19 @@ class _PackAhead:
     The worker touches numpy and ctypes only, never CUDA. ``get(i)``
     blocks until chunk i is packed, then queues the next one; a packer
     exception surfaces there. A context manager: leaving it joins the
-    worker and cancels queued packs."""
+    worker and cancels queued packs.
 
-    def __init__(self, fn, items, depth: Optional[int] = None):
+    ``supervised``: each job beats ``packer`` and runs under
+    :func:`_supervised_job`, as the JAX package's worker does. The mesh
+    ingest and ``TfidfRetriever.index_dir`` pack unsupervised (no beat,
+    no seam, no restart), as the JAX package's pack inline."""
+
+    def __init__(self, fn, items, depth: Optional[int] = None, *,
+                 supervised: bool):
         if depth is None:
             depth = max(1, int(os.environ.get("TFIDF_TPU_PACK_AHEAD", "2")))
         self._fn = fn
+        self._supervised = supervised
         self._items = list(items)
         self._host_s = 0.0
         self._ex = cf.ThreadPoolExecutor(max_workers=1,
@@ -412,13 +470,19 @@ class _PackAhead:
             return
         _trace("pack_submit", i)
 
-        def job(item=self._items[i], i=i):
-            obs.name_thread("packer")
+        def body(item=self._items[i], i=i):
             t0 = time.perf_counter()
             with obs.span("pack", chunk=i):
                 out = self._fn(item)
             self._host_s += time.perf_counter() - t0
             return out
+
+        def job(i=i):
+            obs.name_thread("packer")
+            if not self._supervised:
+                return body()
+            _health_beat("packer")  # no-op unless a monitor is armed
+            return _supervised_job("packer", i, body)
 
         self._futs[i] = self._ex.submit(job)
         self._next += 1
@@ -451,9 +515,11 @@ class _DrainAhead:
     wait-and-unpack on ONE worker thread, which synchronizes on the
     copy's event before reading. At most ``TFIDF_TPU_FETCH_AHEAD``
     (default 2) drains are outstanding. ``results()`` returns the
-    unpacked ``(vals, ids)`` chunk-major."""
+    unpacked ``(vals, ids)`` chunk-major. ``supervised`` as in
+    :class:`_PackAhead`, beating ``drainer`` and firing ``drain``."""
 
-    def __init__(self, unpack, depth: Optional[int] = None):
+    def __init__(self, unpack, depth: Optional[int] = None, *,
+                 supervised: bool = True):
         if depth is None:
             depth = int(os.environ.get("TFIDF_TPU_FETCH_AHEAD", "2"))
         if depth < 1:
@@ -461,6 +527,7 @@ class _DrainAhead:
                 f"TFIDF_TPU_FETCH_AHEAD must be >= 1, got {depth}")
         self._unpack = unpack
         self._depth = depth
+        self._supervised = supervised
         self._ex = cf.ThreadPoolExecutor(max_workers=1,
                                          thread_name_prefix="tfidf-drainer")
         self._futs: List = []
@@ -471,12 +538,20 @@ class _DrainAhead:
         copy = _HostCopy(words)
         _trace("drain_submit", idx)
 
-        def job():
-            obs.name_thread("drainer")
+        def body():
             t0 = time.perf_counter()
             with obs.span("drain", chunk=idx, bytes=int(copy.nbytes)):
                 out = self._unpack(copy.result())
             self._host_s += time.perf_counter() - t0
+            return out
+
+        def job():
+            obs.name_thread("drainer")
+            if self._supervised:
+                _health_beat("drainer")  # no-op unless a monitor is armed
+                out = _supervised_job("drainer", idx, body)
+            else:
+                out = body()
             _trace("drain_done", idx)
             return out
 
@@ -526,9 +601,26 @@ def _chunk_sort_fold(token_ids, lengths, df_acc, *, vocab_size: int):
     return ids, counts, head, df_acc
 
 
+def rebuild_method(explicit: Optional[str] = None) -> str:
+    """Validate the ``TFIDF_TPU_REBUILD`` knob (``"xla"`` or
+    ``"pallas"``). The JAX package picks its ragged->padded rebuild
+    lowering by it; the port has one, kernel B4, for both values."""
+    if explicit is not None:
+        return explicit
+    method = os.environ.get("TFIDF_TPU_REBUILD") or "xla"
+    if method not in ("xla", "pallas"):
+        raise ValueError(f"unknown TFIDF_TPU_REBUILD method {method!r}")
+    return method
+
+
+def _rebuild(flat, lengths, *, length: int, align: int):
+    rebuild_method()
+    return ragged_rebuild(flat, lengths, length=length, align=align)
+
+
 def _chunk_ragged(flat, lengths, df_acc, *, length: int, vocab_size: int,
                   align: int):
-    tok = ragged_rebuild(flat, lengths, length=length, align=align)
+    tok = _rebuild(flat, lengths, length=length, align=align)
     return _chunk_sort_fold(tok, lengths, df_acc, vocab_size=vocab_size)
 
 
@@ -563,7 +655,7 @@ def _phase_a(token_ids, lengths, df_acc, *, vocab_size: int):
 
 def _phase_a_ragged(flat, lengths, df_acc, *, length: int, vocab_size: int,
                     align: int):
-    tok = ragged_rebuild(flat, lengths, length=length, align=align)
+    tok = _rebuild(flat, lengths, length=length, align=align)
     return _phase_a(tok, lengths, df_acc, vocab_size=vocab_size)
 
 
@@ -591,7 +683,7 @@ def _phase_b_cached_packed(ids, counts, head, lengths, idf, *, topk: int):
 
 def _phase_b_ragged(flat, lengths, idf, *, length: int, topk: int,
                     align: int):
-    tok = ragged_rebuild(flat, lengths, length=length, align=align)
+    tok = _rebuild(flat, lengths, length=length, align=align)
     return _phase_b(tok, lengths, idf, topk=topk)
 
 
@@ -980,6 +1072,8 @@ class _Run:
         if self.plan is not None:
             return False, False
         bwire = use_bytes_wire(self.cfg, chunk_docs, self.length)
+        if bwire:
+            tokenize_method()
         return bwire, (not bwire) and use_ragged_wire(self.cfg, chunk_docs,
                                                       self.length)
 
@@ -1205,7 +1299,8 @@ def _run_resident(run: _Run) -> IngestResult:
     all_lengths: List = []
     # Chunk i+1 packs on the worker while chunk i uploads and its device
     # work is issued here.
-    with _PackAhead(chunk_pack, run.chunk_names(starts, chunk_docs)) \
+    with _PackAhead(chunk_pack, run.chunk_names(starts, chunk_docs),
+                    supervised=run.plan is None) \
             as packer:
         for ci in range(n_chunks):
             t0 = time.perf_counter()
@@ -1262,22 +1357,23 @@ def _run_resident(run: _Run) -> IngestResult:
         bytes_off = 0
         owners: List[int] = []
         with _DrainAhead(functools.partial(
-                _unpack_words_rows, score_dtype=run.score_dtype)) as drain:
+                _unpack_words_rows, score_dtype=run.score_dtype),
+                supervised=run.plan is None) as drain:
             for d, dev in enumerate(devs):
                 idf_d = idf.to(dev)
                 if scan_finish:
-                    steps = [(dict(finish="scan", chunks=n_chunks),
+                    steps = [(0, dict(finish="scan", chunks=n_chunks),
                               functools.partial(_phase_b_scan_packed,
                                                 *shard_trips[d]))]
                 else:
-                    steps = [(dict(chunk=ci), functools.partial(
+                    steps = [(ci, dict(chunk=ci), functools.partial(
                         _phase_b_cached_packed, *t))
                         for ci, t in enumerate(trips[d])]
-                for span_args, step in steps:
+                for ci, span_args, step in steps:
                     with _device_phase([dev], "phase_b", **span_args):
                         words = step(idf_d, topk=k)
                     bytes_off += words.nbytes
-                    drain.put(len(owners), words)
+                    drain.put(ci, words)
                     owners.append(d)
             ph["score_b"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -1386,7 +1482,8 @@ def _run_streaming(run: _Run) -> IngestResult:
         return fn(wire, lens, idf, topk=k)
 
     t_pass = time.perf_counter()
-    with _PackAhead(pack_any, run.chunk_names(starts, chunk_docs)) as packer:
+    with _PackAhead(pack_any, run.chunk_names(starts, chunk_docs),
+                    supervised=run.plan is None) as packer:
         for ci in range(n_chunks):
             t0 = time.perf_counter()
             with obs.span("pack_wait", chunk=ci):
@@ -1459,17 +1556,19 @@ def _run_streaming(run: _Run) -> IngestResult:
     reread = ([ci for ci in range(n_chunks) if ci not in trip_cache]
               if spill == "reread" else [])
     packer_b = (_PackAhead(pack_any, run.chunk_names(
-        [starts[ci] for ci in reread], chunk_docs)) if reread else None)
+        [starts[ci] for ci in reread], chunk_docs),
+        supervised=run.plan is None) if reread else None)
     drain = (_DrainAhead(functools.partial(_unpack_words_rows,
-                                           score_dtype=run.score_dtype))
+                                           score_dtype=run.score_dtype),
+                         supervised=run.plan is None)
              if packed_wire else None)
     bpos = 0
 
-    def emit(d: int, out) -> None:
+    def emit(d: int, out, ci: int) -> None:
         nonlocal bytes_off
         if packed_wire:
             bytes_off += out.nbytes
-            drain.put(len(owners), out)  # its depth guard bounds the queue
+            drain.put(ci, out)  # its depth guard bounds the queue
         else:
             outs.append(out)
         owners.append(d)
@@ -1485,7 +1584,7 @@ def _run_streaming(run: _Run) -> IngestResult:
                     words = _phase_b_scan_packed(
                         *(list(p) for p in zip(*(t[d] for t in trips))),
                         idfs[d], topk=k)
-                emit(d, words)
+                emit(d, words, n_scanned - 1)
         for ci in range(n_scanned, n_chunks):
             if ci in trip_cache:
                 fn = _phase_b_cached_packed if packed_wire \
@@ -1493,7 +1592,7 @@ def _run_streaming(run: _Run) -> IngestResult:
                 for d, t in enumerate(trip_cache.pop(ci)):
                     with _device_phase([devs[d]], "phase_b", chunk=ci):
                         out = fn(*t, idfs[d], topk=k)
-                    emit(d, out)
+                    emit(d, out, ci)
             else:
                 if spill == "host":
                     wire_arr, lengths = cached[ci]
@@ -1510,7 +1609,7 @@ def _run_streaming(run: _Run) -> IngestResult:
                               for d, (wire, lens_dev) in enumerate(
                                   run.blocks(wire_arr, lengths))]
                 for d, out in enumerate(scored):
-                    emit(d, out)
+                    emit(d, out, ci)
             if not packed_wire:
                 marks.append(_Mark(*devs))
                 if ci >= max_ahead:  # the same lookahead bound as pass A
@@ -1670,7 +1769,8 @@ def run_overlapped_exact(input_dir: str,
         trips: List[Tuple[torch.Tensor, ...]] = []
         all_lengths = []
         with _PackAhead(pack_exact, [names[s:s + chunk_docs]
-                                     for s in starts]) as packer:
+                                     for s in starts],
+                        supervised=True) as packer:
             for ci, start in enumerate(starts):
                 t0 = time.perf_counter()
                 with obs.span("pack_wait", chunk=ci):
@@ -1737,6 +1837,7 @@ def profile_resident(input_dir: str, config: Optional[PipelineConfig] = None,
     if bwire:
         pack = make_bytes_packer(input_dir, cfg, chunk_docs, length,
                                  stats=pack_stats)
+        tokenize_method()
     elif ragged:
         pack = make_flat_packer(input_dir, cfg, chunk_docs, length)
     else:

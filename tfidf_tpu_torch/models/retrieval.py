@@ -362,8 +362,8 @@ class TfidfRetriever:
                 else make_chunk_packer(input_dir, cfg, chunk_docs, doc_len))
         df_acc = torch.zeros(cfg.vocab_size, dtype=torch.int32, device=dev)
         trip_i, trip_c, trip_h, len_parts = [], [], [], []
-        with _PackAhead(pack, [names[s:s + chunk_docs] for s in starts]) \
-                as packer:
+        with _PackAhead(pack, [names[s:s + chunk_docs] for s in starts],
+                        supervised=False) as packer:
             for ci in range(len(starts)):
                 packed = packer.get(ci)
                 lens = _upload(packed[1], dev)

@@ -22,7 +22,8 @@ torch ops (XLA code outside the kernel in the JAX package, too);
 :func:`tokenize_hash_device` then hashes them through kernel B5
 (``ops.kernels.tokenize_hash``), which on the CPU runs its plain
 version. The JAX package's ``TFIDF_TPU_DEVICE_TOKENIZE`` lowering
-selector has no counterpart: the port has one lowering.
+selector is validated (:func:`tokenize_method`) but chooses nothing: the
+port has one lowering.
 
 The limb helpers (:func:`fnv1a_step`, :func:`fold_mod`) are the JAX
 package's two-uint32-limb FNV emulation, held in int64 tensors masked to
@@ -33,14 +34,15 @@ packages pick the same wire (``ingest.use_bytes_wire``).
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = [
     "FNV_OFFSET", "FNV_PRIME", "is_space", "fnv1a_step", "fold_mod",
     "seed_state", "aligned_byte_lengths", "token_starts",
-    "tokenize_hash_device",
+    "tokenize_hash_device", "tokenize_method",
 ]
 
 FNV_OFFSET = 14695981039346656037  # tokenize_common.h kFnvOffset
@@ -49,6 +51,20 @@ MASK32 = 0xFFFFFFFF
 
 _PRIME_HI = FNV_PRIME >> 32          # 0x100
 _PRIME_LO = FNV_PRIME & MASK32       # 0x1B3
+
+
+def tokenize_method(explicit: Optional[str] = None) -> str:
+    """Validate the ``TFIDF_TPU_DEVICE_TOKENIZE`` knob (``"xla"`` or
+    ``"pallas"``). The JAX package picks its hash lowering by it; the
+    port runs kernel B5 for both values."""
+    if explicit is not None:
+        return explicit
+    method = os.environ.get("TFIDF_TPU_DEVICE_TOKENIZE") or "xla"
+    if method not in ("xla", "pallas"):
+        raise ValueError(
+            f"unknown TFIDF_TPU_DEVICE_TOKENIZE method {method!r} "
+            f"(choose 'xla' or 'pallas')")
+    return method
 
 
 def is_space(b: torch.Tensor) -> torch.Tensor:

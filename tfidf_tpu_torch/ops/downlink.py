@@ -15,14 +15,16 @@ The pack runs on the device: the JAX package's ``pack_result_words``
 is ``ops.kernels.pack_words`` here, which launches the kernel on a CUDA
 tensor. The decode runs on the host in numpy.
 
-Differences from the JAX package: the ``TFIDF_TPU_RESULT_WIRE`` and
-``TFIDF_TPU_DOWNLINK`` environment overrides are not read (the config's
-``result_wire`` decides), and bfloat16 scores decode to float32 numpy
-arrays holding the same values, since numpy has no bfloat16.
+``TFIDF_TPU_RESULT_WIRE`` overrides the config's ``result_wire`` as in
+the JAX package. ``TFIDF_TPU_DOWNLINK`` is validated
+(:func:`downlink_method`) but chooses nothing: the port's pack is kernel
+B3 for both values. bfloat16 scores decode to float32 numpy arrays
+holding the same values, since numpy has no bfloat16.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -47,25 +49,45 @@ def pair_slot_bytes(score_dtype) -> int:
 
 def use_packed_result_wire(cfg, vocab_size: Optional[int] = None) -> bool:
     """True = the packed uint32 word wire, False = the (id, score) pair
-    wire. ``"packed"`` degrades to the pair wire when the word cannot
-    carry the run: no top-k selection, or vocab past 2^16 (ids overflow
-    the uint16 half). float64 scores canonicalise to float32 and pack.
+    wire, from ``config.result_wire`` (env override
+    ``TFIDF_TPU_RESULT_WIRE``). ``"packed"`` degrades to the pair wire
+    when the word cannot carry the run: no top-k selection, or vocab past
+    2^16 (ids overflow the uint16 half). float64 scores canonicalise to
+    float32 and pack.
 
     bfloat16 scores take the pair wire, as they do in the JAX package:
     there the check ``dtype.kind == "f"`` is False for ml_dtypes'
     bfloat16 (kind ``"V"``), so its packed bfloat16 word is never
     selected, and the port keeps the same choice.
     """
-    if cfg.result_wire not in ("packed", "pair"):
-        raise ValueError(f"unknown result wire {cfg.result_wire!r} "
-                         f"(choose 'packed' or 'pair')")
-    if cfg.result_wire == "pair" or cfg.topk is None:
+    choice = (os.environ.get("TFIDF_TPU_RESULT_WIRE")
+              or getattr(cfg, "result_wire", "packed"))
+    if choice not in ("packed", "pair"):
+        raise ValueError(
+            f"unknown result wire {choice!r} (TFIDF_TPU_RESULT_WIRE / "
+            f"--result-wire: choose 'packed' or 'pair')")
+    if choice == "pair" or cfg.topk is None:
         return False
     size = vocab_size if vocab_size is not None else cfg.vocab_size
     if size > (1 << 16):
         return False
-    return canonical_score_dtype(cfg.score_dtype) in (torch.float32,
-                                                      torch.float16)
+    if canonical_score_dtype(cfg.score_dtype) not in (torch.float32,
+                                                      torch.float16):
+        return False
+    downlink_method()  # the packed word wire is chosen: resolve its pack
+    return True
+
+
+def downlink_method(explicit: Optional[str] = None) -> str:
+    """Validate the ``TFIDF_TPU_DOWNLINK`` knob (``"xla"`` or
+    ``"pallas"``). The JAX package picks its word-pack lowering by it;
+    the port packs with kernel B3 for both values."""
+    if explicit is not None:
+        return explicit
+    method = os.environ.get("TFIDF_TPU_DOWNLINK") or "xla"
+    if method not in ("xla", "pallas"):
+        raise ValueError(f"unknown TFIDF_TPU_DOWNLINK method {method!r}")
+    return method
 
 
 def unpack_result_words(words: np.ndarray, *, score_dtype=np.float32):
