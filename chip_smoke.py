@@ -171,9 +171,8 @@ started):
    of its own (this one has held many profiler sessions), the two at
    once beside the oracle check below: its device-op
    table names B4, B1, B3 (ragged) and B5 (bytes) with calls equal to
-   ``kernels.LAUNCHES`` across the capture; the top 12 rows, and
-   ``costmodel.bytes_model`` at the chunk's shape beside the chunk's
-   device time. ``costmodel.hbm_peak_gbs`` of the card's name is not
+   ``kernels.LAUNCHES`` across the capture, and the top 12 rows.
+   ``costmodel.hbm_peak_gbs`` of the card's name is not
    None (checked at the start: every ``bound_ms`` divides by it). The
    8,192-doc index of ``path_retrieval`` rebuilt: its searches at Q 1
    and 64 (tfidf, bm25, tfidf + id_range) give ``scoring.oracle.
@@ -2883,9 +2882,6 @@ def path_observe(T, K, ingest, small, big_docs, rcfg, queries, total, cli,
                         "kernel_ms": kernel_ms, "launches": cap["launches"],
                         "top": [{"name": name[:100], "ms": us / 1e3,
                                  "calls": c} for name, us, c in every[:12]]}
-    model = costmodel.bytes_model(N_DOCS, DOC_LEN, TOPK, hbm_gbs=peak)
-    tables["bytes_model"] = {**model, "chunk_device_ms":
-                             tables["ragged"]["device_ms"]}
     out["device_op_tables"] = tables
     # phase_b of the traced single run: the scoring of its 32,768 rows,
     # at least the fused score+top-k kernel's device time in the capture

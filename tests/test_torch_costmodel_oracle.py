@@ -155,12 +155,6 @@ def test_stage_bytes_are_the_port_tensors_bytes(docs, length, topk, vocab):
     }
     got = costmodel.stage_bytes(docs, length, topk, vocab_size=vocab)
     assert got == want
-    model = costmodel.bytes_model(docs, length, topk)
-    stages = costmodel.stage_bytes(docs, length, topk)
-    assert model["total_gb"] == pytest.approx(sum(stages.values()) / 1e9)
-    assert model["hbm_bound_s"] == pytest.approx(model["total_gb"] / 3350.0)
-    assert "hbm_bound_s" not in costmodel.bytes_model(docs, length, topk,
-                                                      hbm_gbs=None)
 
 
 # --- the device-op table ----------------------------------------------

@@ -4,8 +4,9 @@ loads ``native/fast_tokenizer.so``).
 
 * ``run --doc-len`` on the ragged, bytes and padded wires, the golden
   batch ``run``, ``stream`` and ``query``, each with ``--trace``: the
-  port's trace has the JAX trace's multiset of (lane, span name, carries
-  a byte stamp). The golden run records ``discover``, ``pack``,
+  port's trace, less the spans only the port records
+  (``test_torch_hygiene.PORT_ONLY_VOCAB``), has the JAX trace's
+  multiset of (lane, span name, carries a byte stamp). The golden run records ``discover``, ``pack``,
   ``transfer``, ``compute``, ``fetch`` and ``emit``.
 * ``tools/trace_check.py`` passes the port's ingest traces in ingest
   mode (three lanes, byte stamps on every wire-moving span) and the
@@ -36,6 +37,7 @@ from tfidf_tpu_torch.io.corpus import discover_corpus
 from tfidf_tpu_torch.obs import tracer as ttracer
 from tfidf_tpu_torch.pipeline import TfidfPipeline
 from tfidf_tpu_torch.utils.timing import PhaseTimer, phase_or_null
+from test_torch_hygiene import PORT_ONLY_VOCAB
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = ("tpu mesh psum shard kernel vector lane sublane tile grid "
@@ -103,16 +105,20 @@ def traces(tmp_path_factory):
             **{("stderr",) + job: p.stderr for job, (_, p) in out.items()}}
 
 
-def _signature(path):
+PORT_ONLY_SPANS = {name for vocab, _, name in PORT_ONLY_VOCAB
+                   if vocab == "spans"}
+
+
+def _signature(path, drop=()):
     lanes = obs.spans_by_thread(obs.load_chrome_trace(path))
     return collections.Counter(
         (lane, e["name"], "bytes" in (e.get("args") or {}))
-        for lane, evs in lanes.items() for e in evs)
+        for lane, evs in lanes.items() for e in evs if e["name"] not in drop)
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_trace_equals_jax(traces, case):
-    ours = _signature(traces["tfidf_tpu_torch", case])
+    ours = _signature(traces["tfidf_tpu_torch", case], PORT_ONLY_SPANS)
     theirs = _signature(traces["tfidf_tpu", case])
     assert ours == theirs
     if case in WIRES:
@@ -182,7 +188,9 @@ def test_doctor_prints_the_same_phase_rows(traces, case, tmp_path):
                   "--ledger", str(tmp_path / "none.jsonl"))
         assert p.returncode == 0, p.stdout + p.stderr
         reports.append(_phase_rows(p.stdout))
-    assert reports[0] == reports[1] and reports[1]
+    theirs, ours = reports
+    ours = [row for row in ours if row[0] not in PORT_ONLY_SPANS]
+    assert theirs == ours and ours
 
 
 def test_devmon_census_reaches_the_doctor(traces, tmp_path):

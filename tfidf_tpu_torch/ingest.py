@@ -1025,6 +1025,7 @@ class _Run:
     total_docs: Optional[int] = None  # global document count when sharded
     df_merge: Optional[Callable] = None
     plan: Optional[object] = None     # a docs-only parallel.mesh.MeshPlan
+    setup_span: Optional[obs.SpanHandle] = None  # ended at the first chunk
 
     @property
     def num_docs(self) -> int:
@@ -1239,6 +1240,10 @@ def run_overlapped(input_dir: str, config: Optional[PipelineConfig] = None,
         dev = plan.device(0)
     else:
         dev = resolve_device(device)
+    # The pass's set-up on the main thread: listing the directory, the
+    # run's plan, then the regime's buffers and packer; the regime ends
+    # the span at its first wait on a chunk.
+    setup = obs.begin("pass_setup")
     names = discover_names(input_dir, strict)
     if shard is not None:
         lo, hi = shard
@@ -1266,7 +1271,7 @@ def run_overlapped(input_dir: str, config: Optional[PipelineConfig] = None,
                score_dtype=canonical_score_dtype(cfg.score_dtype),
                itemsize=itemsize, spill=spill, device=dev,
                wire_vals=wire_vals, total_docs=total_docs,
-               df_merge=df_merge, plan=plan)
+               df_merge=df_merge, plan=plan, setup_span=setup)
     _check_chunk_fits_int32(chunk_docs, length)
     resident = int(os.environ.get("TFIDF_TPU_RESIDENT_ELEMS",
                                   _RESIDENT_ELEMS))
@@ -1302,6 +1307,7 @@ def _run_resident(run: _Run) -> IngestResult:
     with _PackAhead(chunk_pack, run.chunk_names(starts, chunk_docs),
                     supervised=run.plan is None) \
             as packer:
+        obs.end(run.setup_span)
         for ci in range(n_chunks):
             t0 = time.perf_counter()
             with obs.span("pack_wait", chunk=ci):
@@ -1384,15 +1390,17 @@ def _run_resident(run: _Run) -> IngestResult:
         df_host = df_copy.result()
         ph["fetch"] = time.perf_counter() - t0
         ph["fetch_host"] = drain.host_seconds
-        vals, tids = (run.gather(_shard_rows([p[j] for p in parts], owners,
-                                             len(devs), n_chunks), n_chunks)
-                      for j in (0, 1))
-        return IngestResult(df=df_host, topk_vals=vals, topk_ids=tids,
-                            df_occupied=int((df_host > 0).sum()),
-                            phases=ph, result_wire="packed",
-                            bytes_off_wire=bytes_off,
-                            finish="scan" if scan_finish else "chunked",
-                            n_finish_dispatches=len(owners), **common)
+        with obs.span("gather"):
+            vals, tids = (run.gather(_shard_rows([p[j] for p in parts],
+                                                 owners, len(devs), n_chunks),
+                                     n_chunks)
+                          for j in (0, 1))
+            return IngestResult(df=df_host, topk_vals=vals, topk_ids=tids,
+                                df_occupied=int((df_host > 0).sum()),
+                                phases=ph, result_wire="packed",
+                                bytes_off_wire=bytes_off,
+                                finish="scan" if scan_finish else "chunked",
+                                n_finish_dispatches=len(owners), **common)
 
     # The fused finish: one byte wire per shard. Under a mesh the
     # ids-only wire keeps -1 in a missing pick, as int32 ids.
@@ -1420,14 +1428,16 @@ def _run_resident(run: _Run) -> IngestResult:
     _trace("fetch_done")
     ph["fetch"] = time.perf_counter() - t0
     owners = list(range(len(devs)))
-    vals = (run.gather(_shard_rows(vals_parts, owners, len(devs), n_chunks),
-                       n_chunks) if run.wire_vals else None)
-    tids = run.gather(_shard_rows(tid_parts, owners, len(devs), n_chunks),
-                      n_chunks)
-    return IngestResult(df=df_host, topk_vals=vals, topk_ids=tids,
-                        df_occupied=occ, phases=ph, result_wire="pair",
-                        bytes_off_wire=bytes_off, finish="fused",
-                        n_finish_dispatches=len(devs), **common)
+    with obs.span("gather"):
+        vals = (run.gather(_shard_rows(vals_parts, owners, len(devs),
+                                       n_chunks), n_chunks)
+                if run.wire_vals else None)
+        tids = run.gather(_shard_rows(tid_parts, owners, len(devs), n_chunks),
+                          n_chunks)
+        return IngestResult(df=df_host, topk_vals=vals, topk_ids=tids,
+                            df_occupied=occ, phases=ph, result_wire="pair",
+                            bytes_off_wire=bytes_off, finish="fused",
+                            n_finish_dispatches=len(devs), **common)
 
 
 def _run_streaming(run: _Run) -> IngestResult:
@@ -1484,6 +1494,7 @@ def _run_streaming(run: _Run) -> IngestResult:
     t_pass = time.perf_counter()
     with _PackAhead(pack_any, run.chunk_names(starts, chunk_docs),
                     supervised=run.plan is None) as packer:
+        obs.end(run.setup_span)
         for ci in range(n_chunks):
             t0 = time.perf_counter()
             with obs.span("pack_wait", chunk=ci):
@@ -1649,30 +1660,29 @@ def _run_streaming(run: _Run) -> IngestResult:
     n_dispatches = len(owners)
     if not packed_wire:  # one part per shard
         owners = list(range(len(devs)))
-    vals, tids = (run.gather(_shard_rows([p[j] for p in parts], owners,
-                                         len(devs), n_chunks), n_chunks)
-                  for j in (0, 1))
-    if bwire:
-        all_lengths = [hc.result() for hc in all_lengths]
-        for key, secs in pack_stats.items():
-            ph[f"{key}_host"] = secs
-    return IngestResult(df=df_host, topk_vals=vals, topk_ids=tids,
-                        lengths=run.gather(np.concatenate(all_lengths),
-                                           n_chunks),
-                        names=run.names, num_docs=num_docs,
-                        df_occupied=int((df_host > 0).sum()),
-                        path=run.path_name("streaming"), phases=ph,
-                        wire=run.wire_name(bwire, ragged),
-                        bytes_on_wire=bytes_wire,
-                        bytes_on_wire_padded=bytes_padded,
-                        result_wire="packed" if packed_wire else "pair",
-                        bytes_off_wire=bytes_off,
-                        bytes_off_wire_pair=(n_chunks * chunk_docs * k
-                                             * pair_slot_bytes(
-                                                 run.score_dtype)),
-                        # "scan" only when the scanned prefix ran
-                        finish="scan" if n_scanned else "chunked",
-                        n_finish_dispatches=n_dispatches)
+    with obs.span("gather"):
+        vals, tids = (run.gather(_shard_rows([p[j] for p in parts], owners,
+                                             len(devs), n_chunks), n_chunks)
+                      for j in (0, 1))
+        if bwire:
+            all_lengths = [hc.result() for hc in all_lengths]
+            for key, secs in pack_stats.items():
+                ph[f"{key}_host"] = secs
+        return IngestResult(
+            df=df_host, topk_vals=vals, topk_ids=tids,
+            lengths=run.gather(np.concatenate(all_lengths), n_chunks),
+            names=run.names, num_docs=num_docs,
+            df_occupied=int((df_host > 0).sum()),
+            path=run.path_name("streaming"), phases=ph,
+            wire=run.wire_name(bwire, ragged),
+            bytes_on_wire=bytes_wire, bytes_on_wire_padded=bytes_padded,
+            result_wire="packed" if packed_wire else "pair",
+            bytes_off_wire=bytes_off,
+            bytes_off_wire_pair=(n_chunks * chunk_docs * k
+                                 * pair_slot_bytes(run.score_dtype)),
+            # "scan" only when the scanned prefix ran
+            finish="scan" if n_scanned else "chunked",
+            n_finish_dispatches=n_dispatches)
 
 
 @dataclasses.dataclass

@@ -33,6 +33,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from tfidf_tpu_torch import obs
+
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 _load_error = ""
@@ -192,26 +194,33 @@ def load_pack_paths(paths: List[str], vocab_size: int, seed: int = 0,
     if lib is None:
         return None
     n_threads = resolve_pack_threads(n_threads)
-    handle = _open(lib, paths, n_threads, want_counts=int(fixed_len is None))
+    # The packers' two traced steps: the parallel file read
+    # (``pack_read``), then the tokenize, hash and wire fill
+    # (``pack_tokenize``).
+    with obs.span("pack_read", files=len(paths), threads=n_threads):
+        handle = _open(lib, paths, n_threads,
+                       want_counts=int(fixed_len is None))
     try:
-        if fixed_len is None:
-            width = max(min_len, lib.loader_max_count(handle), 1)
-            width = -(-width // chunk) * chunk
-        else:
-            width = fixed_len
-        d_padded = max(pad_docs_to or len(paths), len(paths))
-        lengths = np.zeros((d_padded,), dtype=np.int32)
-        lens_ptr = lengths.ctypes.data_as(_PI32)
-        if vocab_size <= (1 << 16):
-            ids = np.zeros((d_padded, width), dtype=np.uint16)
-            lib.loader_fill_u16(handle, _U64(seed), vocab_size,
-                                truncate_at or 0, ids.ctypes.data_as(_PU16),
+        with obs.span("pack_tokenize"):
+            if fixed_len is None:
+                width = max(min_len, lib.loader_max_count(handle), 1)
+                width = -(-width // chunk) * chunk
+            else:
+                width = fixed_len
+            d_padded = max(pad_docs_to or len(paths), len(paths))
+            lengths = np.zeros((d_padded,), dtype=np.int32)
+            lens_ptr = lengths.ctypes.data_as(_PI32)
+            if vocab_size <= (1 << 16):
+                ids = np.zeros((d_padded, width), dtype=np.uint16)
+                lib.loader_fill_u16(handle, _U64(seed), vocab_size,
+                                    truncate_at or 0,
+                                    ids.ctypes.data_as(_PU16), width,
+                                    lens_ptr, n_threads)
+            else:
+                ids = np.zeros((d_padded, width), dtype=np.int32)
+                lib.loader_fill(handle, _U64(seed), vocab_size,
+                                truncate_at or 0, ids.ctypes.data_as(_PI32),
                                 width, lens_ptr, n_threads)
-        else:
-            ids = np.zeros((d_padded, width), dtype=np.int32)
-            lib.loader_fill(handle, _U64(seed), vocab_size, truncate_at or 0,
-                            ids.ctypes.data_as(_PI32), width, lens_ptr,
-                            n_threads)
         NATIVE_CALLS["load_pack_paths"] += 1
         return ids, lengths
     finally:
@@ -227,15 +236,17 @@ def _flat_pack_scaffold(lib, paths: List[str], max_per_doc: int,
     capacity, so the wire leaves native ship-ready), close.
     ``fill(handle, flat, lengths)`` runs the per-token pass and returns
     the live aligned id count."""
-    handle = _open(lib, paths, n_threads)
+    with obs.span("pack_read", files=len(paths), threads=n_threads):
+        handle = _open(lib, paths, n_threads)
     try:
-        d_padded = max(pad_docs_to or len(paths), len(paths))
-        per_doc_cap = max_per_doc if align <= 1 \
-            else -(-max_per_doc // align) * align
-        n_ids = max(len(paths) * per_doc_cap, cap_ids or 0)
-        flat = np.empty((n_ids,), dtype=dtype)
-        lengths = np.zeros((d_padded,), dtype=np.int32)
-        total = fill(handle, flat, lengths)
+        with obs.span("pack_tokenize"):
+            d_padded = max(pad_docs_to or len(paths), len(paths))
+            per_doc_cap = max_per_doc if align <= 1 \
+                else -(-max_per_doc // align) * align
+            n_ids = max(len(paths) * per_doc_cap, cap_ids or 0)
+            flat = np.empty((n_ids,), dtype=dtype)
+            lengths = np.zeros((d_padded,), dtype=np.int32)
+            total = fill(handle, flat, lengths)
         return flat, lengths, int(total)
     finally:
         lib.loader_close(handle)
@@ -285,16 +296,19 @@ def load_slab_paths(paths: List[str], pad_docs_to: Optional[int] = None,
     if lib is None:
         return None
     threads = resolve_pack_threads(n_threads)
-    handle = _open(lib, paths, threads)
+    with obs.span("pack_read", files=len(paths), threads=threads):
+        handle = _open(lib, paths, threads)
     try:
-        total = int(lib.loader_slab_bytes(handle, align))
-        cap = max(total + (-total % cap_round), cap_round)
-        d_padded = max(pad_docs_to or len(paths), len(paths))
-        slab = np.empty((cap,), dtype=np.uint8)
-        blens = np.zeros((d_padded,), dtype=np.int32)
-        wrote = lib.loader_fill_slab(handle, slab.ctypes.data_as(_PU8), cap,
-                                     blens.ctypes.data_as(_PI32), align,
-                                     threads)
+        # the bytes wire's fill: no tokenize or hash, the slab only
+        with obs.span("pack_tokenize"):
+            total = int(lib.loader_slab_bytes(handle, align))
+            cap = max(total + (-total % cap_round), cap_round)
+            d_padded = max(pad_docs_to or len(paths), len(paths))
+            slab = np.empty((cap,), dtype=np.uint8)
+            blens = np.zeros((d_padded,), dtype=np.int32)
+            wrote = lib.loader_fill_slab(handle, slab.ctypes.data_as(_PU8),
+                                         cap, blens.ctypes.data_as(_PI32),
+                                         align, threads)
         assert wrote == total, (wrote, total)
         NATIVE_CALLS["load_slab_paths"] += 1
         return slab, blens, total

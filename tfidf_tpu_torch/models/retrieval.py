@@ -524,8 +524,10 @@ class TfidfRetriever:
                       pad_to: Optional[int] = None,
                       mode: str = "cosine") -> np.ndarray:
         """:func:`query_matrix` over this retriever's config and IDF."""
-        return query_matrix(queries, self.config, self._idf_host(),
-                            pad_to=pad_to, mode=mode)
+        with obs.span("fill_query", queries=pad_to or len(queries),
+                      mode=mode):
+            return query_matrix(queries, self.config, self._idf_host(),
+                                pad_to=pad_to, mode=mode)
 
     def _idf_host(self) -> np.ndarray:
         """Host copy of the IDF vector, cached per installed index: the
@@ -683,8 +685,9 @@ class TfidfRetriever:
             return self._to_device(qmat), lambda: None
         buf, scratch, slot = slab.checkout(bucket)
         try:
-            fill_query_matrix(queries, self.config, self._idf_host(),
-                              buf.numpy(), scratch=scratch, mode=mode)
+            with obs.span("fill_query", queries=bucket, mode=mode):
+                fill_query_matrix(queries, self.config, self._idf_host(),
+                                  buf.numpy(), scratch=scratch, mode=mode)
             with obs.span("h2d", bytes=int(buf.nbytes)):
                 qmat = (buf.to(self.device, non_blocking=True)
                         if self.device.type == "cuda" else buf.clone())

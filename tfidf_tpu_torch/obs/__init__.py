@@ -21,8 +21,9 @@ event log with its flight recorder.
   gauges.
 * :mod:`~tfidf_tpu_torch.obs.devmon` — CUDA memory gauges, census and
   watermarks, and the build watchdog.
-* :mod:`~tfidf_tpu_torch.obs.costmodel` — the card's peaks and the
-  bytes model (stdlib only): byte-stamped spans export achieved GB/s.
+* :mod:`~tfidf_tpu_torch.obs.costmodel` — the card's peaks and each
+  ingest stage's bytes (stdlib only): byte-stamped spans export achieved
+  GB/s.
 * :mod:`~tfidf_tpu_torch.obs.reqtrace` / :mod:`~tfidf_tpu_torch.obs.
   disttrace` — request ids and fleet trace contexts.
 
@@ -40,12 +41,12 @@ from tfidf_tpu_torch.obs.tracer import (SpanHandle, Tracer, begin, configure,
                                         instant, load_chrome_trace,
                                         name_thread, set_export_meta,
                                         set_tracer, span, span_totals,
-                                        spans_by_thread, trace_path)
+                                        spans_by_thread, steps, trace_path)
 
 __all__ = [
     "Tracer", "SpanHandle", "configure", "enabled", "export",
     "get_tracer", "set_tracer", "span", "device_span", "begin", "end",
-    "instant", "name_thread", "span_totals", "trace_path",
+    "instant", "steps", "name_thread", "span_totals", "trace_path",
     "set_export_meta", "load_chrome_trace", "spans_by_thread",
     "device_op_table",
     "EventLog", "get_log", "set_log", "log_event", "record_digest",

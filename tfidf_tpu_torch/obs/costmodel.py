@@ -1,17 +1,16 @@
 """Analytic bytes/bandwidth model: the roofline, next to the trace (port
 of ``tfidf_tpu/obs/costmodel.py``).
 
-One copy of the card's peaks, the per-stage device-memory traffic model
-of the port's resident program and the achieved-GB/s arithmetic that
-turns a byte-stamped span into a roofline fraction. Consumers:
+One copy of the card's peaks, the per-stage device-memory traffic of
+the port's resident program and the achieved-GB/s arithmetic that turns
+a byte-stamped span into a roofline fraction. Consumers:
 
 * ``obs/tracer.py``: a span stamped with a ``bytes`` arg exports its
   ``gb_s`` through :func:`span_gbps`, so the Perfetto timeline shows
   each span's achieved bandwidth;
 * ``chip_smoke.py``: every kernel's ``bound_ms`` (bytes over
   :func:`hbm_peak_gbs` of the card, operations over
-  :data:`INT32_MAD_PER_S` or :data:`FP32_FMA_PER_S`), and the bytes
-  model printed beside an ingest chunk's measured device time;
+  :data:`INT32_MAD_PER_S` or :data:`FP32_FMA_PER_S`);
 * ``tools/doctor.py`` reads the same arithmetic from the JAX package's
   copy, so its GB/s column reads either package's trace alike.
 
@@ -24,12 +23,12 @@ from typing import Dict, Optional
 
 __all__ = [
     "HBM_PEAK_GBS_DEFAULT", "INT32_MAD_PER_S", "FP32_FMA_PER_S",
-    "hbm_peak_gbs", "stage_bytes", "bytes_model", "achieved_gbps",
+    "hbm_peak_gbs", "stage_bytes", "achieved_gbps",
     "span_gbps",
 ]
 
 # Device-memory peak bandwidth (GB/s) of the H100 SXM5 (80 GB HBM3), the
-# NVIDIA data sheet's 3.35 TB/s: the default peak of the bytes model.
+# NVIDIA data sheet's 3.35 TB/s.
 HBM_PEAK_GBS_DEFAULT = 3350.0
 # Keyed by substrings of the card's name as torch.cuda.get_device_name()
 # gives it, compared lower-case; the first match wins.
@@ -98,21 +97,6 @@ def stage_bytes(docs: int, length: int, topk: int = 16,
                        + vocab_size * itemsize + docs * k * 2 * itemsize),
         "pack_words": docs * k * 2 * itemsize + docs * k * 4,
     }
-
-
-def bytes_model(docs: int, length: int, topk: int = 16,
-                hbm_gbs: Optional[float] = HBM_PEAK_GBS_DEFAULT
-                ) -> Dict[str, float]:
-    """The roofline table: per-stage GB, total, and the bandwidth-bound
-    floor in seconds at ``hbm_gbs`` (omitted when the peak is None: no
-    roofline without a card)."""
-    stages = stage_bytes(docs, length, topk)
-    model = {f"{name}_gb": b / 1e9 for name, b in stages.items()}
-    total_gb = sum(model.values())
-    model["total_gb"] = total_gb
-    if hbm_gbs:
-        model["hbm_bound_s"] = total_gb / hbm_gbs
-    return model
 
 
 def achieved_gbps(nbytes: float, seconds: float) -> Optional[float]:

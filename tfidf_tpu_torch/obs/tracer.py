@@ -21,11 +21,21 @@ Design constraints, in priority order:
 * **Cross-thread spans.** ``with span(...)`` covers the same-thread
   case; :func:`begin`/:func:`end` pair across threads. The event lands
   on the lane of the thread that BEGAN it.
-* **Device correlation.** :func:`device_span` additionally opens an
-  NVTX range of the same name (``torch.cuda.nvtx``) while tracing is on
-  and CUDA is initialised, so a concurrent ``torch.profiler`` or Nsight
-  capture carries the marker on its device timeline. On the CPU no NVTX
-  call is made.
+* **Device correlation.** :func:`device_span` additionally opens a
+  ``torch.profiler.record_function`` range named ``<name> <id>`` (the
+  span's ``batch`` or ``chunk`` arg, when it has one), so a concurrent
+  torch.profiler capture holds the span on its own clock and kineto
+  puts it on the device lane beside the ops it launched; and, while
+  CUDA is initialised, an NVTX range of the span's name for Nsight. On
+  the CPU no NVTX call is made.
+* **Garbage collection.** While a tracer is armed (:func:`configure`,
+  :func:`set_tracer`) one ``gc.callbacks`` hook records each full
+  (generation 2) collection as a ``gc_full`` span on the lane of every
+  thread still alive: the collector holds the interpreter lock, so a
+  thread that runs Python stalls through it. A thread inside a call
+  that released the lock (a CUDA synchronisation, a native file read)
+  runs on; its lane shows the stall all the same. Younger generations
+  record nothing. Disarming removes the hook.
 
 Wire-up: ``--trace out.json`` on the CLI subcommands, or the
 ``TFIDF_TPU_TRACE`` env var (path), both through :func:`configure`;
@@ -34,6 +44,7 @@ ring capacity via ``TFIDF_TPU_TRACE_CAP`` (spans, default 2^16).
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import threading
@@ -48,7 +59,7 @@ __all__ = [
     "get_tracer", "set_tracer", "span", "begin", "end", "instant",
     "device_span", "name_thread", "span_totals", "trace_path",
     "set_export_meta", "load_chrome_trace", "device_op_table",
-    "spans_by_thread",
+    "spans_by_thread", "steps",
 ]
 
 _DEFAULT_CAP = 1 << 16
@@ -111,16 +122,19 @@ class _Span:
 
 
 class _DeviceSpan:
-    """Host span + an NVTX range under one name, so the host lane and a
-    device capture carry the same marker. The range opens only when
-    CUDA is initialised in this process: a CPU run makes no NVTX call."""
+    """Host span + a ``record_function`` range (and, while CUDA is
+    initialised, an NVTX range) under one name, so the host lane and a
+    device capture carry the same marker. A CPU run makes no NVTX call.
+    """
 
-    __slots__ = ("_span", "_nvtx", "_name")
+    __slots__ = ("_span", "_nvtx", "_name", "_label", "_range")
 
     def __init__(self, tracer: "Tracer", name: str,
                  args: Optional[Dict[str, Any]]):
         self._span = _Span(tracer, name, args or None)
         self._name = name
+        ident = args.get("batch", args.get("chunk")) if args else None
+        self._label = name if ident is None else f"{name} {ident}"
 
     def __enter__(self):
         self._span.__enter__()
@@ -128,9 +142,12 @@ class _DeviceSpan:
         self._nvtx = torch.cuda.is_initialized()
         if self._nvtx:
             torch.cuda.nvtx.range_push(self._name)
+        self._range = torch.profiler.record_function(self._label)
+        self._range.__enter__()
         return self
 
     def __exit__(self, et, ev, tb):
+        self._range.__exit__(et, ev, tb)
         if self._nvtx:
             import torch
             torch.cuda.nvtx.range_pop()
@@ -155,6 +172,8 @@ class Tracer:
         self._lock = threading.Lock()
         self._next_tid = 0
         self._names: Dict[int, str] = {}     # tid -> thread name
+        # tid -> its thread, until a full collection finds it dead
+        self._threads: Dict[int, threading.Thread] = {}
         self._labels: Dict[int, str] = {}    # tid -> explicit lane label
         self._local = threading.local()
         # Fleet-trace export metadata (round 23): process identity and
@@ -163,6 +182,7 @@ class Tracer:
         # "disttrace" key of the exported doc — timestamps themselves
         # are NEVER rewritten (docs/OBSERVABILITY.md "fleet tracing").
         self.meta: Dict[str, Any] = {}
+        self._gc_t0: Optional[int] = None   # an open full collection
 
     # --- recording ---
     def _tid(self) -> int:
@@ -183,6 +203,7 @@ class Tracer:
             if name == "MainThread":
                 name = "main"
             self._names[tid] = name
+            self._threads[tid] = th
         self._local.tid = tid
         return tid
 
@@ -217,6 +238,40 @@ class Tracer:
         """Zero-duration marker on the calling thread's lane."""
         self._events.append((name, self._tid(),
                              time.perf_counter_ns(), -1, args or None))
+
+    def steps(self, names: Tuple[str, ...], stamps: Tuple[int, ...]) -> None:
+        """Consecutive spans on the calling thread's lane: ``names[i]``
+        from ``stamps[i]`` to ``stamps[i + 1]`` (``perf_counter_ns``).
+        For a hot loop's steps: no span object, no args, one clock read
+        a step."""
+        tid = self._tid()
+        for name, t0, t1 in zip(names, stamps, stamps[1:]):
+            self._events.append((name, tid, t0, t1 - t0, None))
+
+    def span_on_live_lanes(self, name: str, t0: int, **args) -> None:
+        """One span from ``t0`` (``perf_counter_ns``) to now on the lane
+        of every thread still alive, for a stall no Python thread
+        escapes; a dead thread's lane is dropped from the set for good.
+        Takes no lock: the garbage collector's hook calls it, and a
+        collection can start while this thread holds the tracer's
+        lock."""
+        dur = time.perf_counter_ns() - t0
+        for tid, th in list(self._threads.items()):
+            if th.is_alive():
+                self._events.append((name, tid, t0, dur, args or None))
+            else:
+                self._threads.pop(tid, None)
+
+    def _on_gc(self, phase: str, info: Dict[str, int]) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._gc_t0 = time.perf_counter_ns()
+        elif self._gc_t0 is not None:
+            t0, self._gc_t0 = self._gc_t0, None
+            self.span_on_live_lanes("gc_full", t0,
+                                    collected=info["collected"],
+                                    uncollectable=info["uncollectable"])
 
     # --- reading ---
     def events(self) -> List[Tuple]:
@@ -323,7 +378,7 @@ def configure(path: Optional[str] = None,
     leaves tracing OFF). Idempotent: re-configuring with the same or
     no path keeps the live tracer and its recorded spans — the entry
     points call this the way they call ``apply_compile_cache``."""
-    global _tracer, _path
+    global _path
     resolved = path or os.environ.get("TFIDF_TPU_TRACE")
     if not resolved:
         return _path
@@ -333,8 +388,25 @@ def configure(path: Optional[str] = None,
         capacity = int(os.environ.get("TFIDF_TPU_TRACE_CAP",
                                       str(_DEFAULT_CAP)))
     _path = resolved
-    _tracer = Tracer(capacity)
+    _arm(Tracer(capacity))
     return _path
+
+
+def _gc_hook(phase: str, info: Dict[str, int]) -> None:
+    """The one ``gc.callbacks`` entry, present while a tracer is armed."""
+    t = _tracer
+    if t is not None:
+        t._on_gc(phase, info)
+
+
+def _arm(tracer: Optional[Tracer]) -> None:
+    global _tracer
+    _tracer = tracer
+    hooked = _gc_hook in gc.callbacks
+    if tracer is not None and not hooked:
+        gc.callbacks.append(_gc_hook)
+    elif tracer is None and hooked:
+        gc.callbacks.remove(_gc_hook)
 
 
 def enabled() -> bool:
@@ -349,8 +421,8 @@ def set_tracer(tracer: Optional[Tracer],
                path: Optional[str] = None) -> None:
     """Install (or, with ``None``, disarm) the global tracer — the
     test seam, and how embedders route spans into their own sink."""
-    global _tracer, _path
-    _tracer = tracer
+    global _path
+    _arm(tracer)
     _path = path
 
 
@@ -382,8 +454,9 @@ def span(name: str, **args):
 
 
 def device_span(name: str, **args):
-    """Like :func:`span`, additionally wrapped in an NVTX range of the
-    same name (only while CUDA is initialised) so a concurrent device
+    """Like :func:`span`, additionally wrapped in a ``record_function``
+    range ``<name> <batch or chunk id>`` and an NVTX range of the same
+    name (only while CUDA is initialised), so a concurrent device
     capture carries the marker."""
     t = _tracer
     if t is None:
@@ -411,6 +484,14 @@ def instant(name: str, **args) -> None:
     t = _tracer
     if t is not None:
         t.instant(name, **args)
+
+
+def steps(names: Tuple[str, ...], stamps: Tuple[int, ...]) -> None:
+    """Record a hot loop's consecutive steps (:meth:`Tracer.steps`);
+    the caller reads the clock only while :func:`enabled`."""
+    t = _tracer
+    if t is not None:
+        t.steps(names, stamps)
 
 
 def name_thread(label: str) -> None:

@@ -19,11 +19,13 @@ keeps a running [Q, k] top-k across them (:func:`score_topk_tiled`).
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from tfidf_tpu_torch import obs
 from tfidf_tpu_torch.ops.histogram import valid_mask
 from tfidf_tpu_torch.ops.scoring import idf_from_df
 
@@ -313,7 +315,9 @@ def score_topk_tiled_trace(data: torch.Tensor, cols: torch.Tensor,
     (score desc, row asc) order. ``live`` ([D] bool, ``masked=True``)
     scores dead rows ``_DEAD`` before selection. One [tile, Q] score
     buffer serves every tile; the loop issues its work without waiting
-    on the device."""
+    on the device. Traced, each tile's three steps are spans
+    (``tile_scores``, ``tile_topk``, ``tile_merge``) from four clock
+    reads; untraced, the loop pays one ``enabled()`` check a call."""
     from tfidf_tpu_torch.ops.topk import _DEAD, merge_topk, topk_rows
 
     d = data.shape[0]
@@ -325,12 +329,18 @@ def score_topk_tiled_trace(data: torch.Tensor, cols: torch.Tensor,
     vals = torch.full((q, k), -float("inf"), dtype=qmat.dtype, device=dev)
     ids = torch.zeros((q, k), dtype=torch.int32, device=dev)
     buf = torch.empty((tile, q), dtype=torch.float32, device=dev)
+    traced = obs.enabled()
+    clock = time.perf_counter_ns
     for base in range(0, d, tile):
         n = min(tile, d - base)
+        if traced:
+            t0 = clock()
         if n < tile:
             buf[n:].zero_()  # the ragged last tile's zero padding rows
         _tile_scores(data[base:base + n], cols[base:base + n], qmat,
                      buf[:n])
+        if traced:
+            t1 = clock()
         sims = buf.t()                                    # [Q, tile]
         if masked:
             live_t = live[base:base + n]
@@ -338,10 +348,15 @@ def score_topk_tiled_trace(data: torch.Tensor, cols: torch.Tensor,
                 live_t = torch.cat([live_t, live_t.new_zeros(tile - n)])
             sims = torch.where(live_t[None, :], sims, _DEAD)
         v, i = topk_rows(sims, kt)
+        if traced:
+            t2 = clock()
         # Carry first: its rows precede this tile's, so the merge's
         # earlier-position tie-break is the lower global row.
         vals, ids = merge_topk(torch.cat([vals, v], dim=1),
                                torch.cat([ids, i + base], dim=1), k)
+        if traced:
+            obs.steps(("tile_scores", "tile_topk", "tile_merge"),
+                      (t0, t1, t2, clock()))
     return vals, ids
 
 

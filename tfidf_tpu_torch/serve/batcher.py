@@ -385,7 +385,8 @@ class MicroBatcher:
             if self._heartbeat is not None:
                 self._heartbeat()
             faults.fire("batcher_loop")
-            batch = self._take_batch()
+            with obs.span("take"):
+                batch = self._take_batch()
             if batch is None:
                 return
             if self.pipeline_depth > 1:
@@ -480,11 +481,12 @@ class MicroBatcher:
 
     def _execute(self, batch: List[_Pending]) -> None:
         obs.name_thread("batcher")
-        live = self._screen(batch)
-        if not live:
-            return
-        bid, t_formed, queries, offsets, rids = self._form(live)
-        span_extra = self._span_extra(live, rids)
+        with obs.span("form"):
+            live = self._screen(batch)
+            if not live:
+                return
+            bid, t_formed, queries, offsets, rids = self._form(live)
+            span_extra = self._span_extra(live, rids)
         # Recompile attribution: with a warm CompileWatch
         # armed, a recompile-count delta across THIS batch's device
         # call pins the offending batch on the trace timeline — the
@@ -552,7 +554,8 @@ class MicroBatcher:
         device results — so the device always has the next batch
         queued behind the one it is crunching."""
         obs.name_thread("batcher")
-        live = self._screen(batch)
+        with obs.span("form"):
+            live = self._screen(batch)
         if not live:
             return
         # Window admission BEFORE forming: batch ids and queued-span
@@ -563,17 +566,22 @@ class MicroBatcher:
         # window never exceeds depth, which is what lets the slab ring
         # pre-provision exactly ``depth`` slots per bucket.
         with self._icond:
-            while len(self._inflight) >= self.pipeline_depth:
-                if self._heartbeat is not None:
-                    self._heartbeat()
-                self._icond.wait(0.05)
+            if len(self._inflight) >= self.pipeline_depth:
+                # Opened only when the window is full: a batch that does
+                # not wait records nothing.
+                with obs.span("window_wait"):
+                    while len(self._inflight) >= self.pipeline_depth:
+                        if self._heartbeat is not None:
+                            self._heartbeat()
+                        self._icond.wait(0.05)
         was_empty = len(self._inflight) == 0
         bubble = was_empty and self._pipe_streak
-        live = self._screen(live)
-        if not live:
-            return
-        bid, t_formed, queries, offsets, rids = self._form(live)
-        span_extra = self._span_extra(live, rids)
+        with obs.span("form"):
+            live = self._screen(live)
+            if not live:
+                return
+            bid, t_formed, queries, offsets, rids = self._form(live)
+            span_extra = self._span_extra(live, rids)
         watch = obs_devmon.get_watch()
         pre_rc = (watch.recompile_count
                   if watch is not None and watch.warm else None)
@@ -592,12 +600,13 @@ class MicroBatcher:
             # Async issue: the jitted call returns device futures; the
             # synchronous part (tracing/compile) still happens HERE,
             # which keeps recompile attribution on the dispatch side.
-            if self._dispatch_fn is not None:
-                ent.pending = self._dispatch_fn(queries, live[0].k,
-                                                live[0].group)
-            else:
-                ent.pending = _Resolved(self._search_fn(
-                    queries, live[0].k, live[0].group))
+            with obs.device_span("issue", batch=bid):
+                if self._dispatch_fn is not None:
+                    ent.pending = self._dispatch_fn(queries, live[0].k,
+                                                    live[0].group)
+                else:
+                    ent.pending = _Resolved(self._search_fn(
+                        queries, live[0].k, live[0].group))
         except BaseException as e:  # noqa: BLE001 — fail at drain,
             ent.error = e          # in order, like any device error
         if (pre_rc is not None and watch.recompile_count > pre_rc):
@@ -676,7 +685,8 @@ class MicroBatcher:
                 def first(ent=ent):
                     if ent.error is not None:
                         raise ent.error
-                    return ent.pending.materialize()
+                    with obs.span("d2h_wait", batch=bid):
+                        return ent.pending.materialize()
                 if self._supervisor is not None:
                     # The supervisor fires the device_dispatch seam
                     # itself, once per attempt — same budget burn as
@@ -710,7 +720,8 @@ class MicroBatcher:
                 if self._metrics is not None:
                     self._metrics.observe_batch(len(queries),
                                                 _pow2(len(queries)))
-                self._deliver(live, offsets, vals, ids, poison, bid)
+                with obs.span("deliver", batch=bid):
+                    self._deliver(live, offsets, vals, ids, poison, bid)
         if err is not None:
             obs.end(ent.span, outcome="error")
             ent.span = None
