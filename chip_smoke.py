@@ -90,12 +90,12 @@ started):
    8,192-doc index built on both devices agree with the card
    (``compare_search``). Prints index seconds, warm search latency
    (medians of 3) and qps with the median host time of
-   ``fill_query_matrix`` inside those
+   ``pack_queries`` inside those
    searches, that time alone, a device profile of one warm Q = 64
    search, B6's launches in such a search timed by CUDA events (a sleep
    kernel holds the stream around each), and unfiltered and id_range
    Q = 256 searches run in turns, the order reversed every round, each
-   split into ``fill_query_matrix``, device-busy and the rest.
+   split into ``pack_queries``, device-busy and the rest.
 10. ``kernel_cases_b6``: B6 on real tiles of that index (4,096 rows,
    L = 256, V = 2^16) at Q = 1, 3, 16, 17, 32, 33, 64, 100, 128, 256,
    257 and 512 on the tfidf face and 64 and 256 on bm25, a ragged tile,
@@ -263,7 +263,7 @@ started):
    batches, mean occupancy and cache hits per depth, and where a depth-1
    load's time goes: the load once more under torch.profiler with every
    thread's host ops recorded, the batcher's waits, its searches and in
-   them the ``fill_query_matrix`` calls, torch and runtime calls and
+   them the ``pack_queries`` calls, torch and runtime calls and
    device waits (it runs last of the script's profiles: after it, the
    profiler of the process loses records, which a probe reads). No
    ``tfidf-*`` thread outlives a server's ``close()``. A repeated
@@ -1590,14 +1590,14 @@ def timed_calls(owner, name: str):
 def search_split(R, r, queries, settings, rounds: int = 4) -> dict:
     """Warm searches of each setting in turns (one of each per round,
     the order reversed every other round), each split into the host ms
-    of ``fill_query_matrix`` (timed inside the search), the device-busy
+    of ``pack_queries`` (timed inside the search), the device-busy
     ms (torch.profiler over the next search of the same setting) and the
     rest of the host latency; medians over the rounds, every round's
     total and the setting's place in it (0 first), and the last round's
     top device operations."""
     rows = {name: [] for name in settings}
     tops = {}
-    with timed_calls(R, "fill_query_matrix") as fills:
+    with timed_calls(R, "pack_queries") as fills:
         for rnd in range(rounds):
             order = list(settings.items())
             for place, (name, kw) in enumerate(order[::-1] if rnd % 2
@@ -1682,7 +1682,7 @@ def path_retrieval(T, K, root, corpus_docs, total):
                       "filter let a row past 65,536 through")
             results[name, q] = res
             launches_per_search[f"{name}/Q{q}"] = launches["tile_scores"]
-            with timed_calls(R, "fill_query_matrix") as fills:
+            with timed_calls(R, "pack_queries") as fills:
                 ms = host_ms(lambda: r.search(qs, k=RETR_K, **kw),
                              reps=RETR_REPS, warmup=1)
             # one fill a search: the median of the loop's calls, warm-ups in
@@ -1705,9 +1705,8 @@ def path_retrieval(T, K, root, corpus_docs, total):
                   f"4,096")
     fill = {}
     for q in (64, RETR_QUERIES):
-        buf = np.empty((SPARSE_VOCAB, q), np.float32)
-        fill[f"Q{q}"] = host_ms(lambda: R.fill_query_matrix(
-            queries[:q], cfg, r._idf_host(), buf), reps=5, warmup=1)
+        fill[f"Q{q}"] = host_ms(lambda: R.pack_queries(
+            queries[:q], cfg, r._idf_host()), reps=5, warmup=1)
     prof = profile_summary(lambda: r.search(queries[:64], k=RETR_K))
     # B6 in the same search from CUDA events (the profiler misses some of
     # its records), and the filtered Q 256 search beside the unfiltered.
@@ -1750,7 +1749,7 @@ def path_retrieval(T, K, root, corpus_docs, total):
           "tile": RETR_TILE, "n_tiles": n_tiles, "index_s": index_s,
           "index_mb": index_mb, "index_launches": index_launches,
           "search_launches_b6": launches_per_search,
-          "search_latency": latency, "fill_query_matrix_ms": fill,
+          "search_latency": latency, "pack_queries_ms": fill,
           "tiled_equals_untiled": True, "tile_1024_equals_4096": True,
           "q256_prefix_equals_q64": True, "snapshot_s": snap_s,
           "vs_cpu_restore": vs_cpu, "cpu_search_q64_s": cpu_search_s,
@@ -3685,7 +3684,7 @@ def serve_breakdown(r, requests) -> dict:
     with timed_calls(MicroBatcher, "_take_batch") as waits:
         srv = TfidfServer(r, ServeConfig(pipeline_depth=1))
         try:
-            with timed_calls(R, "fill_query_matrix") as fills, \
+            with timed_calls(R, "pack_queries") as fills, \
                     timed_calls(r, "search") as searches:
                 prof = profile_summary(lambda: serve_load(srv, requests),
                                        top_n=6, warm_up=False,

@@ -385,10 +385,12 @@ def _build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--compile-cache", metavar="DIR", default=None,
                     help=_COMPILE_CACHE_HELP)
     sv.add_argument("--query-slab", choices=["on", "off"], default=None,
-                    help="query slab: pinned staging slots and one "
-                         "non-blocking H2D copy a batch; 'off' allocates "
-                         "the block each batch, the same bits (default "
-                         "on; env TFIDF_TPU_QUERY_SLAB)")
+                    help="query slab: a batch's compact query entries "
+                         "in pinned slots, one non-blocking H2D copy a "
+                         "batch, the block built on the device; 'off' "
+                         "fills and uploads a dense block each batch, "
+                         "the same bits (default on; env "
+                         "TFIDF_TPU_QUERY_SLAB)")
     sv.add_argument("--disttrace", choices=["on", "off"], default=None,
                     help="adopt inbound fleet trace contexts (the "
                          "\"trace\" JSONL field; default on; env "

@@ -200,10 +200,11 @@ class ServeConfig:
         shard): every install path re-shards through
         ``parallel.serving.shard_index``. ``--mesh-shards`` /
         ``TFIDF_TPU_MESH_SHARDS``.
-      query_slab: the query slab (pinned host staging slots, one
-        non-blocking H2D copy a batch); None resolves
-        ``TFIDF_TPU_QUERY_SLAB`` (default on), False allocates the block
-        each batch (the same bits). ``--query-slab``.
+      query_slab: the query slab (a batch's compact query entries in
+        reused pinned slots, one non-blocking H2D copy a batch, the
+        block built on the device); None resolves
+        ``TFIDF_TPU_QUERY_SLAB`` (default on), False fills and uploads
+        a dense block each batch (the same bits). ``--query-slab``.
       pipeline_depth: batches in flight between the batcher's dispatch
         stage and its drain worker; 1 = dispatch and materialize one
         batch at a time. ``--serve-pipeline-depth`` /

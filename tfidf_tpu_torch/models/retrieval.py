@@ -3,8 +3,10 @@
 
 The indexed corpus is a row-sparse TF-IDF matrix: per document, sorted
 term ids, L2-normalized weights and a head mask, [D, L] each. A query
-becomes a dense [V] column; a batch of Q queries a [V, Q] block. Search
-is one sparse x dense product: the tile-scores kernel
+becomes a dense [V] column; a batch of Q queries a [V, Q] block, packed
+on the host as compact (query, term, weight) entries (:func:`pack_queries`)
+and, through the query slab, built on the device. Search is one sparse x
+dense product: the tile-scores kernel
 (``ops.kernels.tile_scores``, csrc/tile_scores.cu) scores fixed doc
 tiles against the whole block, and a running top-k folds across them
 (``ops.sparse.score_topk_tiled``). ``TFIDF_TPU_SCORE_TILING=off`` takes
@@ -31,8 +33,9 @@ a plan's answers equal the single-device search bit for bit. A plan
 serves the default scorer only, has no query slab, no fielded index and
 no snapshot, as in the JAX package.
 
-Telemetry, as in the JAX package: a search opens an ``h2d`` span
-(byte-stamped) around the query block's copy to the device and a
+Telemetry, as in the JAX package: a search opens a ``fill_query`` span
+around the packing, an ``h2d`` span (byte-stamped) around the copy of the
+query entries (or, off the slab, of the dense block) to the device and a
 ``score_tile`` span around the tiled search. The JAX package also reads
 the process compile watch around the dispatch, to note a freshly
 compiled search program; a search here compiles nothing (no search
@@ -55,6 +58,7 @@ from tfidf_tpu_torch import obs
 from tfidf_tpu_torch.config import PipelineConfig, VocabMode
 from tfidf_tpu_torch.ingest import _HostCopy
 from tfidf_tpu_torch.io.corpus import Corpus, discover_corpus, pack_corpus
+from tfidf_tpu_torch.io.fast_tokenizer import tokenize_hash_batch
 from tfidf_tpu_torch.ops.hashing import words_to_ids
 from tfidf_tpu_torch.ops.scoring import idf_from_df
 from tfidf_tpu_torch.ops.sparse import (score_tile_rows, score_tiling,
@@ -171,47 +175,95 @@ class PendingSearch:
         return self._result
 
 
+def _query_term_ids(queries: Sequence[Union[str, bytes]],
+                    config: PipelineConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """Every token's vocab id, the batch's queries end to end, and each
+    query's token count: the native tokenize+hash over the whole batch
+    when the library loads, else one :func:`words_to_ids` call over
+    every word of the batch. Both give the same ids."""
+    datas = [q.encode() if isinstance(q, str) else q for q in queries]
+    trunc = config.truncate_tokens_at
+    vocab, seed = config.vocab_size, config.hash_seed
+    # The native clip is off at 0 and below, where a Python slice is not.
+    if datas and (trunc is None or trunc > 0):
+        native = tokenize_hash_batch(datas, vocab, seed, trunc)
+        if native is not None:
+            return native
+    words = [whitespace_tokenize(d, trunc) for d in datas]
+    lens = np.array([len(w) for w in words], np.int64)
+    flat = [w for ws in words for w in ws]
+    if not flat:
+        return np.zeros(0, np.int32), lens
+    return words_to_ids(flat, vocab, seed), lens
+
+
+def pack_queries(queries: Sequence[Union[str, bytes]],
+                 config: PipelineConfig, idf: np.ndarray,
+                 mode: str = "cosine",
+                 scratch: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The batch's query block as a compact list: ``(cols int32, ids
+    int32, weights float32)``, one entry per distinct term of a query,
+    by column and then by term id. Scattered into a zero [V, Q] block
+    (``block[ids, cols] = weights``) it is the dense fill bit for bit.
+
+    The one query-packing implementation: :func:`fill_query_matrix`
+    scatters it on the host, the query slab on the device.
+    ``mode="counts"`` (bm25): exact float32 term counts (``idf`` is
+    ignored). ``mode="cosine"`` (tfidf): the counts ``/ len(words)``,
+    ``* idf``, then ``/`` the column's L2 norm: the squares are laid in
+    the zeroed ``[V]`` float32 ``scratch`` and summed whole, so the sum
+    runs in the order a dense column's would (idf >= 0, as log(N/df)
+    is). A column whose norm is 0 keeps its entries at weight 0; an
+    empty query has none.
+    """
+    if mode not in ("cosine", "counts"):
+        raise ValueError(f"unknown query mode {mode!r}")
+    vocab = config.vocab_size
+    ids, lens = _query_term_ids(queries, config)
+    if not len(ids):
+        return (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                np.zeros(0, np.float32))
+    col_of = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+    keys, counts = np.unique(col_of * vocab + ids, return_counts=True)
+    cols = (keys // vocab).astype(np.int32)
+    ids = (keys - cols.astype(np.int64) * vocab).astype(np.int32)
+    # Integers < 2^24 are exact in float32.
+    weights = counts.astype(np.float32)
+    if mode == "counts":
+        return cols, ids, weights
+    weights /= lens[cols].astype(np.float32)
+    weights *= np.asarray(idf)[ids]
+    if scratch is None:
+        scratch = np.zeros((vocab,), np.float32)
+    else:
+        scratch.fill(0.0)
+    bounds = np.searchsorted(cols, np.arange(len(lens) + 1))
+    for s, e in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        if s == e:
+            continue
+        w, at = weights[s:e], ids[s:e]
+        scratch[at] = w * w
+        norm = float(np.sqrt(scratch.sum()))
+        scratch[at] = 0.0
+        if norm > 0:
+            w /= norm
+        else:
+            w.fill(0.0)
+    return cols, ids, weights
+
+
 def fill_query_matrix(queries: Sequence[Union[str, bytes]],
                       config: PipelineConfig, idf: np.ndarray,
                       out: np.ndarray,
                       scratch: Optional[np.ndarray] = None,
                       mode: str = "cosine") -> np.ndarray:
-    """Pack queries into the [V, Q] query block ``out`` IN PLACE.
-
-    The one query-packing implementation: :func:`query_matrix` and the
-    slab path run this exact float-op sequence, so both give the same
-    bits. ``mode="cosine"`` (tfidf): float32 term counts accumulated into
-    the column, ``/ len(words)``, ``* idf``, L2-normalized via the reused
-    ``[V]`` ``scratch``. ``mode="counts"`` (bm25): raw term counts
-    (``idf`` is ignored). A zero column scores 0 against every document.
-    """
-    if mode not in ("cosine", "counts"):
-        raise ValueError(f"unknown query mode {mode!r}")
+    """Pack queries into the [V, Q] query block ``out`` IN PLACE: the
+    host scatter of :func:`pack_queries` (``mode`` as there). A zero
+    column scores 0 against every document."""
+    cols, ids, weights = pack_queries(queries, config, idf, mode, scratch)
     out.fill(0.0)
-    idf = np.asarray(idf)
-    if scratch is None:
-        scratch = np.empty((config.vocab_size,), np.float32)
-    one = np.float32(1.0)
-    for j, text in enumerate(queries):
-        data = text.encode() if isinstance(text, str) else text
-        words = whitespace_tokenize(data, config.truncate_tokens_at)
-        if not words:
-            continue
-        ids = words_to_ids(words, config.vocab_size, config.hash_seed)
-        col = out[:, j]
-        # Exact float32 counts (integers < 2^24 are exact), then the
-        # same two elementwise ops, in place.
-        np.add.at(col, ids, one)
-        if mode == "counts":
-            continue
-        col /= len(words)
-        col *= idf
-        np.multiply(col, col, out=scratch)
-        norm = float(np.sqrt(scratch.sum()))
-        if norm > 0:
-            col /= norm
-        else:
-            col.fill(0.0)
+    out[ids, cols] = weights
     return out
 
 
@@ -551,7 +603,7 @@ class TfidfRetriever:
                                             "256") or "256"))
             self._slab = QuerySlab(self.config.vocab_size, max_bucket=cap,
                                    min_depth=max(1, self.slab_depth),
-                                   pin=self.device.type == "cuda")
+                                   device=self.device)
         elif self._slab.min_depth < self.slab_depth:
             self._slab.reserve(self.slab_depth)
         return self._slab
@@ -672,30 +724,33 @@ class TfidfRetriever:
     def _stage_queries(self, queries: Sequence[Union[str, bytes]],
                        bucket: int, mode: str):
         """The [V, bucket] query block on the device, and the callable
-        that releases its staging slot. With the slab on, the block is
-        filled in place in a reused (pinned, on CUDA) slot and uploaded
-        by exactly one non-blocking copy on the current stream; the slot
-        must be released only once the search's result is on the host.
-        Past the slab's rings, or with it off, the block is allocated."""
+        that releases its staging slot. With the slab on, the batch is
+        packed as compact entries into a reused (pinned, on CUDA) slot,
+        uploaded by exactly one non-blocking copy on the current stream
+        and built into the slot's device block there; the slot must be
+        released only once the search's result is on the host. Past the
+        slab's rings, or with it off, the dense block is allocated."""
         slab = self._resolve_slab()
         if slab is None or bucket > slab.max_bucket:
             if slab is not None:
                 slab.note_fallback()
             qmat = self._query_matrix(queries, pad_to=bucket, mode=mode)
             return self._to_device(qmat), lambda: None
-        buf, scratch, slot = slab.checkout(bucket)
+        slot, key = slab.checkout(bucket)
         try:
             with obs.span("fill_query", queries=bucket, mode=mode):
-                fill_query_matrix(queries, self.config, self._idf_host(),
-                                  buf.numpy(), scratch=scratch, mode=mode)
-            with obs.span("h2d", bytes=int(buf.nbytes)):
-                qmat = (buf.to(self.device, non_blocking=True)
-                        if self.device.type == "cuda" else buf.clone())
+                cols, ids, weights = pack_queries(
+                    queries, self.config, self._idf_host(), mode,
+                    slot.scratch)
+                nbytes = slab.stage(slot, cols, ids, weights)
+            with obs.span("h2d", bytes=nbytes, entries=len(ids)):
+                slot.upload(nbytes)
+            qmat = slot.build(len(ids))
         except BaseException:
-            slab.release(slot)
+            slab.release(key)
             raise
-        slab.note_h2d(buf.nbytes)
-        return qmat, lambda: slab.release(slot)
+        slab.note_h2d(nbytes, len(ids))
+        return qmat, lambda: slab.release(key)
 
     def _dispatch(self, queries, k: int, spec: ScorerSpec,
                   fspec: Optional[FilterSpec], bucket: int, tiled: bool):

@@ -26,8 +26,8 @@ the device call gets bounded retry and poison-query bisection.
 Pipelined execution: with ``pipeline_depth >= 2`` the batcher thread is
 a DISPATCH stage — it issues ``dispatch_fn(queries, k, group)``, which
 returns a :class:`~tfidf_tpu_torch.models.retrieval.PendingSearch`
-(the retriever's ``search_async``: the query block's non-blocking H2D
-copy, the search launched on the stream, the result's non-blocking
+(the retriever's ``search_async``: the query entries' non-blocking H2D
+copy and the block built on the device, the search launched on the stream, the result's non-blocking
 D2H copy into pinned memory and a CUDA event) — and returns to
 coalescing. A single ordered DRAIN worker materializes results FIFO
 (waiting on the event), releases slab slots and resolves futures. The

@@ -6,7 +6,8 @@ Composition::
     submit(queries, k, deadline) ── admission gate (queue_depth,
       Overloaded) ── per-query cache probe (epoch-keyed LRU) ── misses
       into the MicroBatcher ── coalesced search on the epoch's index
-      (``search_async``: query block staged and copied to the card,
+      (``search_async``: query entries staged, copied to the card and
+      built into the query block there,
       B6 on every doc tile, result copied back into pinned memory) ──
       drain: rows sliced per request, cache filled, Future resolved.
 
