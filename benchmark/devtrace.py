@@ -17,6 +17,11 @@ scratch directory, then read back:
   (``ops.kernels.LAUNCHES``); a capture that recorded fewer than
   ``COMPLETE`` of the launches counted over it lost device records (the
   profiler can drop them) and is not read.
+
+A program that runs on several cards, one process each, captures each
+process with :class:`Capture` there and hands the exported file and
+:meth:`Capture.marks` back; :func:`reduce_file` reduces each card's
+capture and :func:`merge` joins them into the run's one profile.
 """
 
 from __future__ import annotations
@@ -50,10 +55,12 @@ class Profile:
     note: str = ""
     launched: int = 0     # the program's kernels launched over the window
     recorded: int = 0     # ... and recorded by the capture
+    cards_complete: bool = True   # False: a merged card's capture was lossy
 
     @property
     def complete(self) -> bool:
-        return self.recorded >= COMPLETE * self.launched
+        return self.cards_complete \
+            and self.recorded >= COMPLETE * self.launched
 
     def seconds_of(self, fragment: str) -> float:
         """Device seconds of the ops whose name holds ``fragment``."""
@@ -157,14 +164,58 @@ class Capture:
         if exc[0] is None:
             self._prof.export_chrome_trace(self.path)
 
+    def marks(self) -> dict:
+        """What :func:`reduce_file` needs beside the exported file, in a
+        form JSON carries from another process: the clock marks, the
+        thread names and the launches counted."""
+        return {"clock_ns": list(self._clock), "threads": dict(self.threads),
+                "launched": dict(self.launched)}
+
     def reduce(self, spans: Optional[list] = None) -> Profile:
-        with open(self.path) as f:
-            events = json.load(f)["traceEvents"]
-        os.remove(self.path)
-        prof = reduce_events(events, self._clock, self.threads, spans or [],
-                             self.launched)
+        prof = reduce_file(self.path, spans=spans, **self.marks())
         print(f"capture: {prof.note}", file=sys.stderr, flush=True)
         return prof
+
+
+def reduce_file(path: str, clock_ns: List[int], threads: Dict,
+                spans: Optional[list] = None,
+                launched: Optional[Dict[str, int]] = None) -> Profile:
+    """Reduce the Chrome trace that a process exported to ``path``, this
+    one or another (a rank's, on its own card), with that process's
+    clock marks, thread names and launch counts (:meth:`Capture.marks`)
+    and its spans; the file is removed."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    threads = {int(k): name for k, name in threads.items()}  # JSON: str keys
+    return reduce_events(events, list(clock_ns), threads, spans or [],
+                         launched)
+
+
+def merge(profiles: List[Profile]) -> Profile:
+    """One profile of several cards, one capture each: their windows,
+    busy time, kernels, op and idle seconds by name, and launches counted
+    and recorded, summed. So ``busy_s / window_s`` is the cards' mean
+    busy share (each weighted by its window), and the merge is complete
+    only when every card's capture is."""
+    if not profiles:
+        raise ValueError("no profile to merge")
+    ops: Dict[str, float] = defaultdict(float)
+    idle: Dict[str, float] = defaultdict(float)
+    for p in profiles:
+        for name, s in p.op_seconds.items():
+            ops[name] += s
+        for name, s in p.idle_by_label.items():
+            idle[name] += s
+    return Profile(
+        window_s=sum(p.window_s for p in profiles),
+        busy_s=sum(p.busy_s for p in profiles),
+        kernels=sum(p.kernels for p in profiles), op_seconds=dict(ops),
+        idle_by_label=dict(idle),
+        note="; ".join(f"card {i}: {p.note}" for i, p in enumerate(profiles)),
+        launched=sum(p.launched for p in profiles),
+        recorded=sum(p.recorded for p in profiles),
+        cards_complete=all(p.complete for p in profiles))
 
 
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:

@@ -16,6 +16,11 @@ A run: set-up (data from the seed, the program's index or warm-up
 pass) -> the measured window -> the program's device state freed ->
 the plain reference recomputes and the numbers are compared -> with
 ``--trace 1`` the per-layer readers -> the result line.
+
+A program that runs in processes of its own, one card each, is read
+through what its driver hands back: each card's bytes at peak
+(``Observed.device_peaks``) and the cards' captures merged into one
+profile (``devtrace.merge``).
 """
 
 from __future__ import annotations
@@ -114,6 +119,9 @@ class Observed:
     counters: Dict[str, float] = field(default_factory=dict)
     profile: object = None                       # devtrace.Profile
     facts: Dict[str, float] = field(default_factory=dict)
+    # Each card's bytes at peak, as a program in other processes reports
+    # them; empty where the program runs in this process alone.
+    device_peaks: List[int] = field(default_factory=list)
 
 
 @dataclass
@@ -162,6 +170,10 @@ def tracer_spans(tracer) -> list:
 
 
 def device_info(ctx: Context, peak: int) -> dict:
+    """The result's ``device``. ``memory_peak_bytes`` is the fullest
+    card's: the larger of this process's peak and every card's the
+    program reported; ``busy_s``/``window_s`` are the profile's, summed
+    over the cards of a merged one."""
     if ctx.cuda:
         import torch
         kind = torch.cuda.get_device_name(0)
@@ -170,7 +182,8 @@ def device_info(ctx: Context, peak: int) -> dict:
         kind, platform = "cpu", "cpu"
     info = {"platform": platform, "kind": kind,
             "count": int(ctx.cell.get("chips", 1)),
-            "memory_peak_bytes": int(peak)}
+            "memory_peak_bytes": int(max([peak,
+                                          *ctx.observed.device_peaks]))}
     prof = ctx.observed.profile
     if ctx.trace and prof is not None:
         info["busy_s"] = prof.busy_s

@@ -50,7 +50,7 @@ def test_the_closed_loop_keeps_its_answers_across_row_blocks():
     layout = harness.Layout()
     cell = "marco-serve-saturated"
     driver = layout.driver("serve_closed")
-    driver.ROWS = 16   # a new block of answer rows every 16 requests
+    driver.ROWS = 8   # a new block of answer rows every 8 requests
     ov = tiny.overrides(layout, cell)
     ctx = harness.Context(cell, {**layout.cell(cell), "traffic": {
         **layout.cell(cell)["traffic"], **ov["traffic"]}},

@@ -1,29 +1,33 @@
-"""Tiny sizes of every cell, for runs of the harness on the CPU."""
+"""Tiny sizes of every cell, for runs of the harness on the CPU.
 
+What a driver kind brings to its tests lives in ``tests/kinds/<kind>.py``
+beside the layout's ``traffic/<kind>.py``, found by the kind's name:
+``TINY`` (the configuration's and the traffic's overrides) and
+``FAULTS`` (``state_unchanged``, ``half_batch`` and ``answer_altered``,
+each ``fault(monkeypatch)``, planted where that kind's program can be
+reached)."""
+
+import os
 import time
 
 from benchmark import harness
+from benchmark.reference.compare import verdict
 
-SERVE = {"config": {"docs": 2000, "word_types": 8192,
-                    "serve": {"max_batch": 8, "max_wait_ms": 2.0,
-                              "queue_depth": 256, "cache_entries": 4096,
-                              "pipeline_depth": 2,
-                              "scorer": "bm25:b=0.68,k1=0.82"}}}
-TRAFFIC = {
-    "serve_open": {"rate": 60, "profile_s": 0.5},
-    "serve_closed": {"clients": 6, "profile_s": 0.5},
-}
-INGEST = {"config": {"docs": 1500, "word_types": 8192, "doc_len": 128,
-                     "chunk_docs": 512,
-                     "length": {"kind": "lognormal", "median": 60,
-                                "sigma": 1.2, "min": 1, "max": 1000}}}
+FAULT_NAMES = ("state_unchanged", "half_batch", "answer_altered")
+
+
+def kind_file(layout: harness.Layout, kind: str) -> str:
+    return layout._file(os.path.join("tests", "kinds"), kind, ".py")
+
+
+def kind(layout: harness.Layout, cell: str):
+    """The test module of ``cell``'s driver kind."""
+    name = layout.cell(cell)["driver"]
+    return harness._load(kind_file(layout, name), "kind")
 
 
 def overrides(layout: harness.Layout, cell: str) -> dict:
-    kind = layout.cell(cell)["driver"]
-    if kind == "ingest_passes":
-        return INGEST
-    return {**SERVE, "traffic": TRAFFIC[kind]}
+    return kind(layout, cell).TINY
 
 
 def run(cell: str, seed: int = 11, seconds: float = 1.0, trace=False,
@@ -32,3 +36,22 @@ def run(cell: str, seed: int = 11, seconds: float = 1.0, trace=False,
     return harness.execute(cell, seed, seconds, trace, "cpu",
                            time.perf_counter(), layout,
                            overrides(layout, cell), precision)
+
+
+def control(cell: str, seed: int = 3, layout=None):
+    """The control at the tiny size, as the cell's kind declares it
+    (``CONTROL``): its compared numbers and whether they pass."""
+    layout = layout or harness.Layout()
+    c = layout.cell(cell)
+    driver = layout.driver(c["driver"])
+    if driver.CONTROL == "program":
+        r = run(cell, seed=seed, layout=layout, precision="bfloat16")
+        return {k: v["value"] for k, v in r["checks"].items()}, r["correct"]
+    ov = overrides(layout, cell)
+    cfg = {**layout.config(c["config"]), **ov.get("config", {})}
+    c = {**c, "traffic": {**c["traffic"], **ov.get("traffic", {})}}
+    ctx = harness.Context(cell, c, cfg, seed, 1.0, False, "cpu", "",
+                          "bfloat16")
+    numbers = driver.reference_control(ctx)["checks"]
+    limits = {k: float(v) for k, v in c["limits"].items()}
+    return numbers, verdict(numbers, limits)

@@ -24,6 +24,9 @@ from benchmark.reference import compare, tfidf
 from benchmark.reference.hashing import word_buckets
 from benchmark.traffic import text
 
+# The control: the program's own bfloat16 score path (``ctx.precision``).
+CONTROL = "program"
+
 
 @dataclass
 class IngestState:

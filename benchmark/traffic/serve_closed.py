@@ -20,6 +20,10 @@ import numpy as np
 from benchmark.harness import Context, Window
 from benchmark.traffic import serving
 
+# The control: the plain reference in bfloat16 in the program's place.
+CONTROL = "reference"
+reference_control = serving.reference_control
+
 GRACE_S = 60.0
 # Answer rows allocated at a time as the loop sends.
 ROWS = 1 << 16

@@ -23,6 +23,10 @@ import numpy as np
 from benchmark.harness import Context, Window
 from benchmark.traffic import serving, text
 
+# The control: the plain reference in bfloat16 in the program's place.
+CONTROL = "reference"
+reference_control = serving.reference_control
+
 GRACE_S = 60.0
 
 

@@ -330,3 +330,35 @@ def check(ctx: Context, st: ServeState) -> dict:
     facts["terms_per_query"], facts["postings_per_query"] = tpq, ppq
     ctx.log(f"checked {len(rows)} answers and {len(ix.doc)} face slots")
     return numbers
+
+
+def reference_control(ctx: Context) -> dict:
+    """The control of a served kind (``CONTROL = "reference"``: the
+    program has no lower-precision path of its own): the plain reference
+    in bfloat16 in the program's place, its face and its answers to the
+    sampled queries, judged as the program's are."""
+    cfg, traffic = ctx.config, ctx.cell["traffic"]
+    words = text.make_words(cfg)
+    corpus = text.make_corpus(cfg, ctx.seed, words)
+    n = len(text.arrivals(traffic, ctx.seconds)) if "rate" in traffic \
+        else int(traffic["clients"]) * 64
+    queries = text.make_queries(traffic, cfg, words, ctx.seed, n)
+    st = ServeState({}, words, corpus, queries, traffic["scorer"],
+                    int(cfg["k"]))
+    ix = reference_index(ctx, st)
+    sc = scorer_dict(st.scorer)
+    ref_w = tfidf.face(ix, sc, "float64")
+    low_w = tfidf.face(ix, sc, "bfloat16")
+    numbers = compare.face_numbers(ix.doc, ix.term, low_w, ix.doc, ix.term,
+                                   ref_w, ix.vocab_size, ix.num_docs)
+    rows = check_sample(ctx, queries, np.ones(len(queries), bool))
+    texts = [queries[i] for i in rows]
+    hs = int(cfg["hash_seed"])
+    vals, ids, _, _ = tfidf.search(ix, tfidf.invert(ix, low_w), sc, texts,
+                                   st.k, "bfloat16", hash_seed=hs)
+    ref_v, _, ref_n, at = tfidf.search(ix, tfidf.invert(ix, ref_w), sc,
+                                       texts, st.k, "float64", picks=ids,
+                                       hash_seed=hs)
+    numbers.update(compare.topk_numbers(vals, ids, ref_v, ref_n, at))
+    numbers["unanswered"] = 0
+    return {"checks": numbers, "checked": len(rows)}
